@@ -1,0 +1,591 @@
+"""The bounce megakernel: tables, plain PyTorch version, CUDA wrapper and
+the compacted driver.
+
+Port of rtweekend_tpu/ops/pallas/megakernel.py. The TPU kernel
+(`_make_kernel`, launched by `_trace_segment`) becomes the hand-written
+CUDA kernel in `csrc/megakernel.cu`, reached through `trace_segment`.
+Beside it, `trace_segment_plain` computes the same function with plain
+tensor ops, following the TPU kernel's `bounce_body` op for op without
+its (8, 128) tiles; `trace_segment` uses it for CPU tensors only.
+
+Ray state is one [m, 14] float32 buffer, one row per ray (columns in
+STATE_FIELDS order; the int32 fields pid, sid and ray_id ride bit-cast).
+Compaction is then a single row gather, and the kernel reads and writes
+56 contiguous bytes per ray.
+
+The compacted driver (`trace_paths_compact`) traces a few bounces per
+launch and gathers the survivors into a smaller buffer between launches.
+Buffer sizes come from a static per-bounce capacity schedule, so nothing
+is read back to the host: the alive count and the overflow flag stay on
+the device, and a capacity overflow raises the flag instead of dropping
+rays silently. Compaction is exact (RNG streams are keyed by pixel,
+sample and bounce, never by buffer position, and a ray adds radiance at
+most once), so compacted output is bit-equal to the uncompacted output.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from rtweekend_tpu_torch.models.scene import (
+    MAT_DIELECTRIC,
+    MAT_LIGHT,
+    MAT_METAL,
+    TEX_CHECKER,
+    Scene,
+)
+from rtweekend_tpu_torch.ops import coeffs
+from rtweekend_tpu_torch.ops.coeffs import BIG, NF, T_MIN
+from rtweekend_tpu_torch.utils import rng as rng_mod
+
+TILE = 1024  # capacity granule, as the TPU kernel's (8, 128) tile
+_NEAR_ZERO = 1e-8
+
+# Attribute-table rows (rtweekend_tpu megakernel.py:158-175). Float rows:
+(
+    _AF_C0X, _AF_C0Y, _AF_C0Z,          # sphere center c0 (rects: 0)
+    _AF_DCX, _AF_DCY, _AF_DCZ,          # sphere center delta
+    _AF_T0, _AF_IDT,                    # motion time0 / 1/dt
+    _AF_INVR,                           # 1 / radius
+    _AF_NX, _AF_NY, _AF_NZ,             # rect world normal (spheres: 0)
+    _AF_FUZZ, _AF_IOR,
+    _AF_CR, _AF_CG, _AF_CB,             # texture color / checker even
+    _AF_C2R, _AF_C2G, _AF_C2B,          # checker odd
+    _AF_TSCALE,                         # noise scale
+    _AF_UWX, _AF_UWY, _AF_UWZ, _AF_UC,  # rect u(p) affine row
+    _AF_VWX, _AF_VWY, _AF_VWZ, _AF_VC,  # rect v(p) affine row
+) = range(29)
+# Int rows:
+_AI_MTYPE, _AI_TTYPE, _AI_IMGW, _AI_IMGH, _AI_IMGBASE = range(5)
+
+# Ray-state columns; the kernel (csrc/megakernel.cu) uses the same order.
+STATE_FIELDS = (
+    "ox", "oy", "oz", "dx", "dy", "dz", "tm", "pid", "sid",
+    "tr", "tg", "tb", "al", "ray_id",
+)
+(S_OX, S_OY, S_OZ, S_DX, S_DY, S_DZ, S_TM, S_PID, S_SID,
+ S_TR, S_TG, S_TB, S_AL, S_RID) = range(len(STATE_FIELDS))
+
+# Shared memory one block may use on Hopper; the kernel stages the
+# coefficient rows there as 20 floats each.
+_SMEM_LIMIT = 232448
+_ROW_BYTES = 80
+
+
+@dataclasses.dataclass
+class Tables:
+    """The scene packed for the kernel (rtweekend_tpu `_pack_scene`):
+
+    - coef [2S+6R, 128] f32: [hb(S); cc(S); kn(R); dn(R); ua(R); da(R);
+      vb(R); db(R)], NF=17 feature columns zero-padded to 128;
+    - attr_f [29, C*128] f32 / attr_i [5, C*128] i32: winner attributes
+      in primitive order (spheres then rects), materials and textures
+      denormalized onto primitives;
+    - perm/grad [8, 128]: Perlin tables as half-rows; images [C', 128]
+      the packed RGBA atlas (both for the variants still to port).
+    """
+
+    coef: torch.Tensor
+    attr_f: torch.Tensor
+    attr_i: torch.Tensor
+    perm: torch.Tensor
+    grad: torch.Tensor
+    images: torch.Tensor
+    s_pad: int
+    r_pad: int
+    has_noise: bool
+    has_image: bool
+    has_motion: bool
+
+
+def pack_scene(scene: Scene) -> Tables:
+    sp, rc = scene.spheres, scene.rects
+    mats, tex = scene.materials, scene.textures
+    s_pad = sp.radius.shape[0]
+    r_pad = rc.k.shape[0]
+    p = s_pad + r_pad
+    pc = -(-p // 128) * 128
+
+    a_hb, a_cc = coeffs.sphere_coeffs(scene)
+    rect6 = coeffs.rect_coeffs(scene)
+    coef = torch.cat([a_hb, a_cc, *rect6], dim=0).to(torch.float32)
+    coef = torch.nn.functional.pad(coef, (0, 128 - NF))
+
+    def cat(s_vals, r_vals, dtype=torch.float32):
+        v = torch.cat([s_vals.to(dtype), r_vals.to(dtype)])
+        return torch.nn.functional.pad(v, (0, pc - p))
+
+    zs = sp.radius.new_zeros((s_pad,))
+    zr = rc.k.new_zeros((r_pad,))
+    # padding spheres never win (all-zero coef rows), but keep 1/r finite
+    inv_r = torch.where(
+        sp.active & (sp.radius != 0.0),
+        1.0 / torch.where(sp.radius == 0.0, 1.0, sp.radius),
+        0.0,
+    )
+    ua_w, ua_c, vb_w, vb_c = coeffs.rect_uv_rows(scene)
+
+    def mat_rows(mat_id):
+        mid = mat_id.long()
+        tid = mats.tex_id[mid].long()
+        img = tex.image_id[tid].long()
+        return (
+            [mats.fuzz[mid], mats.ior[mid],
+             tex.color[tid, 0], tex.color[tid, 1], tex.color[tid, 2],
+             tex.color2[tid, 0], tex.color2[tid, 1], tex.color2[tid, 2],
+             tex.scale[tid]],
+            [mats.mtype[mid], tex.ttype[tid], scene.image_w[img],
+             scene.image_h[img], scene.image_base[img]],
+        )
+
+    s_mf, s_mi = mat_rows(sp.mat_id)
+    r_mf, r_mi = mat_rows(rc.mat_id)
+    attr_f = torch.stack([
+        cat(sp.c0[:, 0], zr), cat(sp.c0[:, 1], zr), cat(sp.c0[:, 2], zr),
+        cat(sp.dc[:, 0], zr), cat(sp.dc[:, 1], zr), cat(sp.dc[:, 2], zr),
+        cat(sp.time0, zr), cat(sp.inv_dt, torch.ones_like(zr)),
+        cat(inv_r, zr),
+        cat(zs, rc.normal[:, 0]), cat(zs, rc.normal[:, 1]), cat(zs, rc.normal[:, 2]),
+        *[cat(a, b) for a, b in zip(s_mf, r_mf)],
+        cat(zs, ua_w[:, 0]), cat(zs, ua_w[:, 1]), cat(zs, ua_w[:, 2]), cat(zs, ua_c),
+        cat(zs, vb_w[:, 0]), cat(zs, vb_w[:, 1]), cat(zs, vb_w[:, 2]), cat(zs, vb_c),
+    ])
+    attr_i = torch.stack([cat(a, b, torch.int32) for a, b in zip(s_mi, r_mi)])
+
+    zi = torch.zeros(128, dtype=torch.int32, device=coef.device)
+    perm = torch.stack([
+        scene.perlin_px[:128], scene.perlin_px[128:],
+        scene.perlin_py[:128], scene.perlin_py[128:],
+        scene.perlin_pz[:128], scene.perlin_pz[128:], zi, zi,
+    ]).to(torch.int32)
+    g = scene.perlin_grad.to(torch.float32)
+    zf = torch.zeros(128, dtype=torch.float32, device=coef.device)
+    grad = torch.stack([
+        g[:128, 0], g[128:, 0], g[:128, 1], g[128:, 1],
+        g[:128, 2], g[128:, 2], zf, zf,
+    ])
+    return Tables(
+        coef=coef.contiguous(), attr_f=attr_f.contiguous(),
+        attr_i=attr_i.contiguous(), perm=perm, grad=grad,
+        images=scene.images_packed, s_pad=int(s_pad), r_pad=int(r_pad),
+        has_noise=bool(scene.has_noise), has_image=bool(scene.has_image),
+        has_motion=bool(scene.has_motion),
+    )
+
+
+def _check_variant(tables: Tables, background):
+    """Refuse the kernel variants this port does not have yet, on every
+    device: a scene that needs one must fail, not render wrong."""
+    missing = []
+    if tables.has_noise:
+        missing.append("has_noise (Perlin-noise textures)")
+    if tables.has_image:
+        missing.append("has_image (image textures)")
+    if len(background) == 2:
+        missing.append("has_sky (gradient sky background)")
+    if missing:
+        raise NotImplementedError(
+            "bounce kernel variant not ported yet: " + ", ".join(missing)
+        )
+    if len(background) != 3:
+        raise ValueError(f"background must be 3 floats, got {background!r}")
+
+
+def init_state(origins, dirs, times, pixel_ids, sample_ids) -> torch.Tensor:
+    """[m, 14] state for N rays, m = N rounded up to a TILE multiple; the
+    padding rows are dead (rtweekend_tpu `_init_state`)."""
+    n = origins.shape[0]
+    m = _tiles(n)
+    dev = origins.device
+    st = torch.zeros((m, len(STATE_FIELDS)), dtype=torch.float32, device=dev)
+    st[:n, S_OX:S_OZ + 1] = origins
+    st[:n, S_DX:S_DZ + 1] = dirs
+    st[n:, S_DZ] = 1.0
+    st[:n, S_TM] = times
+    st[:n, S_PID] = pixel_ids.to(torch.int32).view(torch.float32)
+    st[:n, S_SID] = sample_ids.to(torch.int32).view(torch.float32)
+    st[:, S_TR:S_TB + 1] = 1.0
+    st[:n, S_AL] = 1.0
+    st[:, S_RID] = torch.arange(m, dtype=torch.int32, device=dev).view(torch.float32)
+    return st
+
+
+def _int_col(state, k):
+    return state[:, k].view(torch.int32)
+
+
+def _march(feats, coef_t):
+    """feats [m, NF] . coef_t [NF, rows], summed over the features in
+    column order — the order of the CUDA kernel's multiply-add chain.
+    A BLAS matmul sums in an unspecified blocked order; on final_scene
+    (1024 rays, depth 8) that put 0.46% of lanes off the JAX kernel by
+    more than 1e-3, against 0.36% for this order and a bar of 0.5%."""
+    out = feats[:, :1] * coef_t[:1]
+    for k in range(1, feats.shape[1]):
+        out = out + feats[:, k:k + 1] * coef_t[k:k + 1]
+    return out
+
+
+def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
+                        n_bounces: int, t_min: float = T_MIN):
+    """n_bounces bounces from global bounce b0 for every row of `state`,
+    with plain tensor ops: the TPU kernel's bounce_body
+    (megakernel.py:588-893), op for op, over flat [m] ray vectors.
+    Returns (radiance delta [3, m], new state [m, 14]); dead rows pass
+    through untouched and add nothing."""
+    _check_variant(tables, background)
+    s, r = tables.s_pad, tables.r_pad
+    n_prims = s + r
+    coef_t = tables.coef[:, :NF].t()
+    af, ai = tables.attr_f, tables.attr_i
+    bg_r, bg_g, bg_b = (float(x) for x in background)
+    dev = state.device
+
+    ox, oy, oz = state[:, S_OX], state[:, S_OY], state[:, S_OZ]
+    dx, dy, dz = state[:, S_DX], state[:, S_DY], state[:, S_DZ]
+    time = state[:, S_TM]
+    tr, tg, tb = state[:, S_TR], state[:, S_TG], state[:, S_TB]
+    pid, sid = _int_col(state, S_PID), _int_col(state, S_SID)
+    alive = state[:, S_AL] > 0.5
+    al_out = state[:, S_AL]
+    zero = torch.zeros_like(ox)
+    rr, rg, rb = zero, zero, zero
+    iota = torch.arange(n_prims, device=dev)
+
+    for b in range(n_bounces):
+        # ---- closest hit (megakernel.py:535-586) ----
+        o_d = ox * dx + oy * dy + oz * dz
+        o_o = ox * ox + oy * oy + oz * oz
+        a = dx * dx + dy * dy + dz * dz
+        inv_a = 1.0 / a
+        feats = torch.stack([
+            dx, dy, dz, time * dx, time * dy, time * dz, o_d,
+            ox, oy, oz, time * ox, time * oy, time * oz,
+            time, time * time, o_o, torch.ones_like(ox),
+        ], dim=1)
+        out = _march(feats, coef_t)                        # [m, 2S+6R]
+        t_sph = coeffs.quadratic_t(
+            out[:, :s], out[:, s:2 * s], a[:, None], inv_a[:, None], t_min
+        )
+        o2 = 2 * s
+        t_rect = coeffs.rect_t(*(out[:, o2 + k * r:o2 + (k + 1) * r] for k in range(6)),
+                               t_min)
+        t_all = torch.cat([t_sph, t_rect], dim=1)          # [m, P]
+        t_best = t_all.min(dim=1).values
+        idx = torch.where(t_all == t_best[:, None], iota, n_prims).min(dim=1).values
+        hit = t_best < BIG * 0.5
+        t_eff = torch.where(hit, t_best, 1.0)
+        px = ox + t_eff * dx
+        py = oy + t_eff * dy
+        pz = oz + t_eff * dz
+
+        # ---- winner attributes (megakernel.py:601-631) ----
+        j = torch.where(hit, idx, 0)
+        is_s = j < s
+        gf = lambda row: af[row, j]  # noqa: E731
+        cx, cy, cz = gf(_AF_C0X), gf(_AF_C0Y), gf(_AF_C0Z)
+        if tables.has_motion:
+            s_t = (time - gf(_AF_T0)) * gf(_AF_IDT)
+            cx = cx + s_t * gf(_AF_DCX)
+            cy = cy + s_t * gf(_AF_DCY)
+            cz = cz + s_t * gf(_AF_DCZ)
+        inv_r = gf(_AF_INVR)
+        fuzz, ior = gf(_AF_FUZZ), gf(_AF_IOR)
+        cr, cg, cb = gf(_AF_CR), gf(_AF_CG), gf(_AF_CB)
+        c2r, c2g, c2b = gf(_AF_C2R), gf(_AF_C2G), gf(_AF_C2B)
+        mtype, ttype = ai[_AI_MTYPE, j], ai[_AI_TTYPE, j]
+
+        onx = torch.where(is_s, (px - cx) * inv_r, gf(_AF_NX))
+        ony = torch.where(is_s, (py - cy) * inv_r, gf(_AF_NY))
+        onz = torch.where(is_s, (pz - cz) * inv_r, gf(_AF_NZ))
+        d_dot_n = dx * onx + dy * ony + dz * onz
+        front = d_dot_n < 0.0
+        sgn = torch.where(front, 1.0, -1.0)
+        nx, ny, nz = onx * sgn, ony * sgn, onz * sgn
+
+        # ---- RNG (megakernel.py:645-665) ----
+        stream_a = rng_mod.BOUNCE_STREAM0 + 2 * (b0 + b)
+        x, y, z, w = rng_mod.pcg4d(pid, sid, stream_a, seed, device=dev)
+        ua0, ua1, ua2, ua3 = (rng_mod.to_unit(v) for v in (x, y, z, w))
+        x, y, _, _ = rng_mod.pcg4d(pid, sid, stream_a + 1, seed, device=dev)
+        ub0, ub1 = rng_mod.to_unit(x), rng_mod.to_unit(y)
+        two_pi = 2.0 * math.pi
+        g_r0 = torch.sqrt(-2.0 * torch.log1p(-ua0))
+        g_r1 = torch.sqrt(-2.0 * torch.log1p(-ua2))
+        g0 = g_r0 * torch.cos(two_pi * ua1)
+        g1 = g_r0 * torch.sin(two_pi * ua1)
+        g2 = g_r1 * torch.cos(two_pi * ua3)
+        g_sq = g0 * g0 + g1 * g1 + g2 * g2
+        g_zero = torch.sqrt(g_sq) == 0.0
+        inv_g = torch.rsqrt(torch.where(g_zero, 1.0, g_sq))
+        uvx = torch.where(g_zero, g0, g0 * inv_g)
+        uvy = torch.where(g_zero, g1, g1 * inv_g)
+        uvz = torch.where(g_zero, g2, g2 * inv_g)
+        # cube root as exp(log(u)/3), as the TPU kernel computes it
+        crad = torch.exp(torch.log(torch.clamp(ub0, min=1e-30)) * (1.0 / 3.0))
+
+        # ---- texture (solid / checker) ----
+        sines = torch.sin(10.0 * px) * torch.sin(10.0 * py) * torch.sin(10.0 * pz)
+        use2 = (ttype == TEX_CHECKER) & (sines < 0.0)
+        tex_r = torch.where(use2, c2r, cr)
+        tex_g = torch.where(use2, c2g, cg)
+        tex_b = torch.where(use2, c2b, cb)
+
+        # ---- diffuse (material.zig:41-53) ----
+        ddx, ddy, ddz = nx + uvx, ny + uvy, nz + uvz
+        deg = ((torch.abs(ddx) < _NEAR_ZERO) & (torch.abs(ddy) < _NEAR_ZERO)
+               & (torch.abs(ddz) < _NEAR_ZERO))
+        ddx = torch.where(deg, nx, ddx)
+        ddy = torch.where(deg, ny, ddy)
+        ddz = torch.where(deg, nz, ddz)
+
+        # ---- metal (material.zig:55-66) ----
+        d_nsq = dx * dx + dy * dy + dz * dz
+        inv_dn = torch.rsqrt(torch.where(d_nsq == 0.0, 1.0, d_nsq))
+        ux, uy, uz = dx * inv_dn, dy * inv_dn, dz * inv_dn
+        u_dot_n = ux * nx + uy * ny + uz * nz
+        rx = ux - 2.0 * u_dot_n * nx
+        ry = uy - 2.0 * u_dot_n * ny
+        rz = uz - 2.0 * u_dot_n * nz
+        mdx = rx + fuzz * (uvx * crad)
+        mdy = ry + fuzz * (uvy * crad)
+        mdz = rz + fuzz * (uvz * crad)
+        metal_alive = (rx * nx + ry * ny + rz * nz) > 0.0
+
+        # ---- dielectric (material.zig:68-92) ----
+        ratio = torch.where(front, 1.0 / ior, ior)
+        cos_t = torch.clamp(-u_dot_n, max=1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-20))
+        can_refract = ratio * sin_t <= 1.0
+        r0 = (1.0 - ratio) / (1.0 + ratio)
+        r0 = r0 * r0
+        one_c = 1.0 - cos_t
+        one_c5 = one_c * one_c
+        one_c5 = one_c5 * one_c5 * one_c
+        refl = r0 + (1.0 - r0) * one_c5
+        do_refract = can_refract & (refl < ub1)
+        perp_x = ratio * (ux + cos_t * nx)
+        perp_y = ratio * (uy + cos_t * ny)
+        perp_z = ratio * (uz + cos_t * nz)
+        perp_sq = perp_x * perp_x + perp_y * perp_y + perp_z * perp_z
+        par = -torch.sqrt(torch.clamp(torch.abs(1.0 - perp_sq), min=1e-12))
+        gdx = torch.where(do_refract, perp_x + par * nx, rx)
+        gdy = torch.where(do_refract, perp_y + par * ny, ry)
+        gdz = torch.where(do_refract, perp_z + par * nz, rz)
+
+        # ---- select by material ----
+        is_metal = mtype == MAT_METAL
+        is_diel = mtype == MAT_DIELECTRIC
+        is_light = mtype == MAT_LIGHT
+        ndx = torch.where(is_diel, gdx, torch.where(is_metal, mdx, ddx))
+        ndy = torch.where(is_diel, gdy, torch.where(is_metal, mdy, ddy))
+        ndz = torch.where(is_diel, gdz, torch.where(is_metal, mdz, ddz))
+        at_r = torch.where(is_diel, 1.0, tex_r)
+        at_g = torch.where(is_diel, 1.0, tex_g)
+        at_b = torch.where(is_diel, 1.0, tex_b)
+        sc_alive = (is_metal & metal_alive) | (~is_metal & ~is_light)
+
+        # ---- accumulate (main.zig:110-121) ----
+        hit_live = alive & hit
+        miss_live = alive & ~hit
+        em = hit_live & is_light
+        rr = rr + torch.where(em, tr * tex_r, 0.0) + torch.where(miss_live, tr * bg_r, 0.0)
+        rg = rg + torch.where(em, tg * tex_g, 0.0) + torch.where(miss_live, tg * bg_g, 0.0)
+        rb = rb + torch.where(em, tb * tex_b, 0.0) + torch.where(miss_live, tb * bg_b, 0.0)
+        new_alive = hit_live & sc_alive
+        tr = torch.where(new_alive, tr * at_r, tr)
+        tg = torch.where(new_alive, tg * at_g, tg)
+        tb = torch.where(new_alive, tb * at_b, tb)
+        ox = torch.where(new_alive, px, ox)
+        oy = torch.where(new_alive, py, oy)
+        oz = torch.where(new_alive, pz, oz)
+        dx = torch.where(new_alive, ndx, dx)
+        dy = torch.where(new_alive, ndy, dy)
+        dz = torch.where(new_alive, ndz, dz)
+        # rows dead at entry keep their alive value; live rows become 0/1
+        al_out = torch.where(state[:, S_AL] > 0.5, new_alive.to(torch.float32), al_out)
+        alive = new_alive
+
+    new_state = torch.stack([
+        ox, oy, oz, dx, dy, dz, time, state[:, S_PID], state[:, S_SID],
+        tr, tg, tb, al_out, state[:, S_RID],
+    ], dim=1)
+    return torch.stack([rr, rg, rb]), new_state
+
+
+def _check_cuda_args(tables: Tables, state: torch.Tensor):
+    dev = state.device
+    named = dict(coef=tables.coef, attr_f=tables.attr_f, attr_i=tables.attr_i,
+                 state=state)
+    for name, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, state on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in ("coef", "attr_f", "state"):
+        if named[name].dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {named[name].dtype}")
+    if tables.attr_i.dtype != torch.int32:
+        raise TypeError(f"attr_i must be int32, got {tables.attr_i.dtype}")
+    n_rows = 2 * tables.s_pad + 6 * tables.r_pad
+    if tables.coef.shape != (n_rows, 128):
+        raise ValueError(f"coef must be [{n_rows}, 128], got {tuple(tables.coef.shape)}")
+    pc = tables.attr_f.shape[1]
+    if tables.attr_f.shape[0] != 29 or tables.attr_i.shape != (5, pc) \
+            or pc < tables.s_pad + tables.r_pad:
+        raise ValueError("attr_f/attr_i must be [29, C*128] / [5, C*128]")
+    if state.dim() != 2 or state.shape[1] != len(STATE_FIELDS):
+        raise ValueError(f"state must be [m, {len(STATE_FIELDS)}], got {tuple(state.shape)}")
+    if state.shape[0] >= 2**31:
+        raise ValueError("too many rays for one launch")
+    if n_rows * _ROW_BYTES > _SMEM_LIMIT:
+        raise ValueError(
+            f"{n_rows} coefficient rows need {n_rows * _ROW_BYTES} bytes of "
+            f"shared memory; the kernel stages at most {_SMEM_LIMIT}"
+        )
+
+
+def trace_segment(tables: Tables, state, seed: int, background, b0: int,
+                  n_bounces: int, t_min: float = T_MIN):
+    """The bounce kernel (csrc/megakernel.cu) for CUDA tensors; the plain
+    version for CPU tensors. Same contract as trace_segment_plain.
+    `trace_segment.launches` counts kernel launches."""
+    if state.device.type == "cpu":
+        return trace_segment_plain(tables, state, seed, background, b0,
+                                   n_bounces, t_min)
+    if state.device.type != "cuda":
+        raise ValueError(f"unsupported device {state.device}")
+    _check_variant(tables, background)
+    _check_cuda_args(tables, state)
+    from rtweekend_tpu_torch.ops.cuda import build
+
+    lib, _ = build.load()
+    m = state.shape[0]
+    rad = torch.empty((3, m), dtype=torch.float32, device=state.device)
+    out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.rtw_bounce_segment(
+        tables.coef.data_ptr(), tables.coef.shape[0], tables.coef.shape[1],
+        tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
+        tables.s_pad, tables.r_pad, int(tables.has_motion),
+        state.data_ptr(), out.data_ptr(), rad.data_ptr(), m,
+        int(seed) & 0xFFFFFFFF, *(float(x) for x in background),
+        int(b0), int(n_bounces), float(t_min), stream,
+    )
+    if rc != 0:
+        msg = lib.rtw_error_string(rc).decode()
+        raise RuntimeError(f"bounce kernel launch failed: CUDA error {rc} ({msg})")
+    trace_segment.launches += 1
+    return rad, out
+
+
+trace_segment.launches = 0
+
+KERNELS = ("auto", "cuda", "torch")
+
+
+def segment_fn(kernel: str, device: torch.device):
+    """The segment tracer for a kernel choice: "auto" and "cuda" go
+    through the wrapper (kernel on the card, plain version on the CPU),
+    "torch" is the plain version on any device."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    if kernel == "cuda" and device.type != "cuda":
+        raise ValueError("kernel='cuda' needs tensors on a CUDA device")
+    return trace_segment_plain if kernel == "torch" else trace_segment
+
+
+def trace_paths(tables: Tables, origins, dirs, times, pixel_ids, sample_ids,
+                seed: int, background, max_depth: int, *, kernel: str = "auto"):
+    """All bounces in one launch, no compaction (rtweekend_tpu
+    `trace_paths_pallas`). Returns radiance [N, 3]."""
+    n = origins.shape[0]
+    state = init_state(origins, dirs, times, pixel_ids, sample_ids)
+    fn = segment_fn(kernel, state.device)
+    rad, _ = fn(tables, state, seed, background, 0, max_depth)
+    return rad[:, :n].t()
+
+
+def _tiles(n: int) -> int:
+    return max(TILE, -(-n // TILE) * TILE)
+
+
+# Capacity schedules ((bounce, fraction), ...): entering bounce b the ray
+# buffer shrinks to _tiles(fraction * n_rays). The same schedules as the
+# JAX package (megakernel.py:1267-1288): OPEN for sky-lit scenes, whose
+# wavefront collapses within a few bounces; CLOSED for enclosed scenes.
+CAPS_OPEN = ((3, 0.45), (6, 0.10), (12, 0.02), (20, 0.010))
+CAPS_CLOSED = ((8, 0.7), (16, 0.55), (32, 0.4))
+
+
+def schedule(n: int, max_depth: int, capacities):
+    """Segments [(b0, n_bounces, out_cap)] for n rays. Capacities are
+    sorted and deduplicated; they only ever shrink the buffer."""
+    caps = sorted(
+        {b: _tiles(int(f * n)) for b, f in capacities if 0 < b < max_depth}.items()
+    )
+    boundaries = [b for b, _ in caps] + [max_depth]
+    cap_at = dict(caps)
+    segs = []
+    b, cap = 0, _tiles(n)
+    while b < max_depth:
+        nxt = next(x for x in boundaries if x > b)
+        out_cap = min(cap, cap_at.get(b, cap))
+        segs.append((b, nxt - b, out_cap))
+        cap, b = out_cap, nxt
+    return segs
+
+
+def compact(state, count, out_cap: int):
+    """The first out_cap live rows of state, in ascending row order, as a
+    prefix-sum scatter into a fixed capacity (no data-sized op, no host
+    sync). `count` is the device-side alive count. Rows past the live ones
+    repeat the last row and are marked dead (rtweekend_tpu
+    megakernel.py:1185-1229, where jnp.nonzero(size=...) does this).
+    Returns (compacted state [out_cap, 14], overflow flag)."""
+    cap_prev = state.shape[0]
+    dev = state.device
+    alive = state[:, S_AL] > 0.5
+    pos = torch.cumsum(alive, dim=0) - 1
+    # live rows that fit go to their rank; everything else to a spill slot
+    dest = torch.where(alive & (pos < out_cap), pos, out_cap)
+    idx = torch.full((out_cap + 1,), cap_prev - 1, dtype=torch.int64, device=dev)
+    idx.scatter_(0, dest, torch.arange(cap_prev, device=dev))
+    g = state.index_select(0, idx[:out_cap])
+    keep = (torch.arange(out_cap, device=dev) < count) & (g[:, S_AL] > 0.5)
+    g[:, S_AL] = keep.to(torch.float32)
+    return g, count > out_cap
+
+
+def trace_paths_compact(tables: Tables, origins, dirs, times, pixel_ids, sample_ids,
+                        seed: int, background, max_depth: int, *,
+                        capacities=CAPS_OPEN, kernel: str = "auto"):
+    """Segmented tracing with wavefront compaction (rtweekend_tpu
+    `trace_paths_pallas_compact`). Returns (radiance [N, 3], overflow):
+    both stay on the device. The radiance is bit-equal to trace_paths
+    unless overflow is set, in which case live rays were dropped."""
+    n = origins.shape[0]
+    state = init_state(origins, dirs, times, pixel_ids, sample_ids)
+    fn = segment_fn(kernel, state.device)
+    dev = state.device
+    total = torch.zeros((3, state.shape[0]), dtype=torch.float32, device=dev)
+    count = torch.tensor(n, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for b0, n_b, out_cap in schedule(n, max_depth, capacities):
+        if out_cap < state.shape[0]:
+            state, ovf = compact(state, count, out_cap)
+            overflow = overflow | ovf
+        rad, state = fn(tables, state, seed, background, b0, n_b)
+        if out_cap == total.shape[1]:
+            # before the first compaction ray_id == row: a dense add
+            total += rad
+        else:
+            # per-channel scatter-add; repeated spill rows add exactly 0
+            ray_id = _int_col(state, S_RID).long()
+            for c in range(3):
+                total[c].index_add_(0, ray_id, rad[c])
+        count = (state[:, S_AL] > 0.5).sum()
+    return total[:, :n].t(), overflow
