@@ -9,10 +9,14 @@
 // Lambertian / metal / dielectric scatter with the checker texture, and
 // the flat-sky / emission radiance update. It emits the segment's
 // radiance delta [3, m] and the carried state [m, 14]. Rays dead at entry
-// pass through untouched. Variants: has_motion true (final_scene) and
-// false (cornell_box), as template instantiations; Perlin noise, image
-// textures, gradient sky and the per-bounce winner output are not here
-// (the Python wrapper refuses scenes that need them).
+// pass through untouched. Variants, as template instantiations:
+// has_motion true (final_scene) and false (cornell_box); want_winners
+// (megakernel.py:892, :902-903) also writes winners [n_bounces, m] int32,
+// the closest-hit primitive of every bounce (spheres 0..S-1, then rects
+// S..S+R-1), -1 on a miss and on every bounce after the ray died — the
+// path decisions the differentiable replay (ops/replay.py) re-traces.
+// Perlin noise, image textures and the gradient sky are not here (the
+// Python wrapper refuses scenes that need them).
 //
 // Design, simple and correct before fast: one thread per ray, the bounce
 // loop inside the thread, a strict `t < best` scan over the primitives
@@ -23,7 +27,10 @@
 // needs 5 loads per 17 FMAs. final_scene's 1024 rows take 80 KB, above
 // the 48 KB default, hence cudaFuncSetAttribute. Winner attributes are
 // read from device memory through the read-only cache (__ldg), once per
-// bounce.
+// bounce. The winners write is one int per ray-bounce, coalesced across
+// the warp (row b of winners is contiguous in the ray index); with
+// WANT_WINNERS false it compiles away, so the render path's code is
+// unchanged.
 //
 // Numerics: fp32 only, no tensor cores, no fast-math. The sphere c_coef
 // row cancels |beta|^2 ~ 1e6 (r = 1000 ground) to ~1e3, so reduced
@@ -37,8 +44,10 @@
 // for the coefficient dots (final_scene: 1024*17 = 17,408 FMA) plus a
 // ~10-op epilogue per primitive and a few hundred shading ops, against
 // 67 TFLOP/s fp32 outside the tensor cores; the state traffic (2 x 56
-// bytes per ray per launch) is far below the memory bound. This first
-// version makes no attempt to approach that bound.
+// bytes per ray per launch) is far below the memory bound; so is the
+// winners output (4 bytes per ray-bounce: 162 MB for 811,008 rays at depth
+// 50, ~0.05 ms at 3.35 TB/s). This first version makes no attempt to
+// approach the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +85,7 @@ struct Params {
   const float* state_in; // [m, SW]
   float* state_out;      // [m, SW]
   float* rad;            // [3, m]
+  int* winners;          // [n_bounces, m] when WANT_WINNERS, else null
   int m;
   uint32_t seed;
   float bg_r, bg_g, bg_b;
@@ -113,7 +123,7 @@ __device__ __forceinline__ float dot_row(const float4* row, const float* f) {
   return s;
 }
 
-template <bool HAS_MOTION>
+template <bool HAS_MOTION, bool WANT_WINNERS>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
   extern __shared__ float4 s_coef[];
   const int n_f4 = p.n_rows * ROW_F4;
@@ -148,7 +158,8 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
   const int* ai = p.attr_i;
   const size_t ast = (size_t)p.attr_stride;
 
-  for (int b = 0; b < p.n_bounces && alive; ++b) {
+  int b = 0;
+  for (; b < p.n_bounces && alive; ++b) {
     // ---- closest hit over all primitives (megakernel.py:535-586) ----
     const float o_d = ox * dx + oy * dy + oz * dz;
     const float o_o = ox * ox + oy * oy + oz * oz;
@@ -188,6 +199,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
       if (t < best) { best = t; idx = S + r; }
     }
     const bool hit = best < BIG * 0.5f;
+    if (WANT_WINNERS) p.winners[(size_t)b * p.m + i] = hit ? idx : -1;
     const float t_eff = hit ? best : 1.0f;
     const float px = ox + t_eff * dx;
     const float py = oy + t_eff * dy;
@@ -315,6 +327,11 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
     }
   }
 
+  if (WANT_WINNERS) {
+    // dead rays take no decision: the rest of their column is -1
+    for (; b < p.n_bounces; ++b) p.winners[(size_t)b * p.m + i] = -1;
+  }
+
   float* out = p.state_out + (size_t)i * SW;
   out[S_OX] = ox; out[S_OY] = oy; out[S_OZ] = oz;
   out[S_DX] = dx; out[S_DY] = dy; out[S_DZ] = dz;
@@ -328,15 +345,15 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
   p.rad[2 * (size_t)p.m + i] = rb;
 }
 
-template <bool HAS_MOTION>
+template <bool HAS_MOTION, bool WANT_WINNERS>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = (size_t)p.n_rows * ROW_F4 * sizeof(float4);
   cudaError_t err = cudaFuncSetAttribute(
-      bounce_kernel<HAS_MOTION>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      bounce_kernel<HAS_MOTION, WANT_WINNERS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.m + BLOCK - 1) / BLOCK));
-  bounce_kernel<HAS_MOTION><<<grid, BLOCK, smem, stream>>>(p);
+  bounce_kernel<HAS_MOTION, WANT_WINNERS><<<grid, BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -344,12 +361,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // Plain C interface, bound with ctypes (ops/cuda/megakernel.py). Launches
 // on `stream`, allocates nothing, does not synchronise; returns the
-// cudaError_t of the launch (0 on success).
+// cudaError_t of the launch (0 on success). `winners` is null for the
+// radiance-only variant, else an [n_bounces, m] int32 buffer the kernel
+// fills completely.
 extern "C" int rtw_bounce_segment(
     const void* coef, int n_rows, int coef_stride,
     const void* attr_f, const void* attr_i, int attr_stride,
     int s_pad, int r_pad, int has_motion,
-    const void* state_in, void* state_out, void* rad, int m,
+    const void* state_in, void* state_out, void* rad, void* winners, int m,
     unsigned int seed, float bg_r, float bg_g, float bg_b,
     int b0, int n_bounces, float t_min, void* stream) {
   Params p;
@@ -364,6 +383,7 @@ extern "C" int rtw_bounce_segment(
   p.state_in = static_cast<const float*>(state_in);
   p.state_out = static_cast<float*>(state_out);
   p.rad = static_cast<float*>(rad);
+  p.winners = static_cast<int*>(winners);
   p.m = m;
   p.seed = seed;
   p.bg_r = bg_r;
@@ -373,7 +393,12 @@ extern "C" int rtw_bounce_segment(
   p.n_bounces = n_bounces;
   p.t_min = t_min;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = has_motion ? launch<true>(p, s) : launch<false>(p, s);
+  cudaError_t err;
+  if (winners != nullptr) {
+    err = has_motion ? launch<true, true>(p, s) : launch<false, true>(p, s);
+  } else {
+    err = has_motion ? launch<true, false>(p, s) : launch<false, false>(p, s);
+  }
   return (int)err;
 }
 

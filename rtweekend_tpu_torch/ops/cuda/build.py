@@ -81,7 +81,7 @@ def load():
         p, i, i,        # coef, n_rows, coef_stride
         p, p, i,        # attr_f, attr_i, attr_stride
         i, i, i,        # s_pad, r_pad, has_motion
-        p, p, p, i,     # state_in, state_out, rad, m
+        p, p, p, p, i,  # state_in, state_out, rad, winners (or None), m
         u, f, f, f,     # seed, background rgb
         i, i, f,        # b0, n_bounces, t_min
         p,              # stream

@@ -230,12 +230,16 @@ def _march(feats, coef_t):
 
 
 def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
-                        n_bounces: int, t_min: float = T_MIN):
+                        n_bounces: int, t_min: float = T_MIN, *,
+                        want_winners: bool = False):
     """n_bounces bounces from global bounce b0 for every row of `state`,
     with plain tensor ops: the TPU kernel's bounce_body
     (megakernel.py:588-893), op for op, over flat [m] ray vectors.
     Returns (radiance delta [3, m], new state [m, 14]); dead rows pass
-    through untouched and add nothing."""
+    through untouched and add nothing. want_winners adds winners
+    [n_bounces, m] int32: the closest-hit primitive index of each bounce
+    (spheres first, then s_pad + rect), -1 on a miss and wherever the ray
+    is dead (the TPU kernel leaves those entries unspecified)."""
     _check_variant(tables, background)
     s, r = tables.s_pad, tables.r_pad
     n_prims = s + r
@@ -254,6 +258,7 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
     zero = torch.zeros_like(ox)
     rr, rg, rb = zero, zero, zero
     iota = torch.arange(n_prims, device=dev)
+    winners = []
 
     for b in range(n_bounces):
         # ---- closest hit (megakernel.py:535-586) ----
@@ -277,6 +282,8 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
         t_best = t_all.min(dim=1).values
         idx = torch.where(t_all == t_best[:, None], iota, n_prims).min(dim=1).values
         hit = t_best < BIG * 0.5
+        if want_winners:
+            winners.append(torch.where(alive & hit, idx, -1).to(torch.int32))
         t_eff = torch.where(hit, t_best, 1.0)
         px = ox + t_eff * dx
         py = oy + t_eff * dy
@@ -413,6 +420,8 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
         ox, oy, oz, dx, dy, dz, time, state[:, S_PID], state[:, S_SID],
         tr, tg, tb, al_out, state[:, S_RID],
     ], dim=1)
+    if want_winners:
+        return torch.stack([rr, rg, rb]), new_state, torch.stack(winners)
     return torch.stack([rr, rg, rb]), new_state
 
 
@@ -449,13 +458,14 @@ def _check_cuda_args(tables: Tables, state: torch.Tensor):
 
 
 def trace_segment(tables: Tables, state, seed: int, background, b0: int,
-                  n_bounces: int, t_min: float = T_MIN):
+                  n_bounces: int, t_min: float = T_MIN, *, want_winners: bool = False):
     """The bounce kernel (csrc/megakernel.cu) for CUDA tensors; the plain
     version for CPU tensors. Same contract as trace_segment_plain.
-    `trace_segment.launches` counts kernel launches."""
+    `trace_segment.launches` counts kernel launches of both variants,
+    `trace_segment.winners_launches` those of the want_winners variant."""
     if state.device.type == "cpu":
         return trace_segment_plain(tables, state, seed, background, b0,
-                                   n_bounces, t_min)
+                                   n_bounces, t_min, want_winners=want_winners)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
     _check_variant(tables, background)
@@ -466,12 +476,16 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     m = state.shape[0]
     rad = torch.empty((3, m), dtype=torch.float32, device=state.device)
     out = torch.empty_like(state)
+    # the kernel writes every entry, -1 after a ray's death included
+    win = (torch.empty((n_bounces, m), dtype=torch.int32, device=state.device)
+           if want_winners else None)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.rtw_bounce_segment(
         tables.coef.data_ptr(), tables.coef.shape[0], tables.coef.shape[1],
         tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
         tables.s_pad, tables.r_pad, int(tables.has_motion),
-        state.data_ptr(), out.data_ptr(), rad.data_ptr(), m,
+        state.data_ptr(), out.data_ptr(), rad.data_ptr(),
+        win.data_ptr() if want_winners else None, m,
         int(seed) & 0xFFFFFFFF, *(float(x) for x in background),
         int(b0), int(n_bounces), float(t_min), stream,
     )
@@ -479,10 +493,14 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
         msg = lib.rtw_error_string(rc).decode()
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {rc} ({msg})")
     trace_segment.launches += 1
+    if want_winners:
+        trace_segment.winners_launches += 1
+        return rad, out, win
     return rad, out
 
 
 trace_segment.launches = 0
+trace_segment.winners_launches = 0
 
 KERNELS = ("auto", "cuda", "torch")
 
@@ -499,13 +517,19 @@ def segment_fn(kernel: str, device: torch.device):
 
 
 def trace_paths(tables: Tables, origins, dirs, times, pixel_ids, sample_ids,
-                seed: int, background, max_depth: int, *, kernel: str = "auto"):
+                seed: int, background, max_depth: int, *, kernel: str = "auto",
+                return_winners: bool = False, t_min: float = T_MIN):
     """All bounces in one launch, no compaction (rtweekend_tpu
-    `trace_paths_pallas`). Returns radiance [N, 3]."""
+    `trace_paths_pallas`). Returns radiance [N, 3]; with return_winners,
+    (radiance [N, 3], winners [max_depth, N] int32, -1 = miss or dead)."""
     n = origins.shape[0]
     state = init_state(origins, dirs, times, pixel_ids, sample_ids)
     fn = segment_fn(kernel, state.device)
-    rad, _ = fn(tables, state, seed, background, 0, max_depth)
+    if return_winners:
+        rad, _, win = fn(tables, state, seed, background, 0, max_depth, t_min,
+                         want_winners=True)
+        return rad[:, :n].t(), win[:, :n]
+    rad, _ = fn(tables, state, seed, background, 0, max_depth, t_min)
     return rad[:, :n].t()
 
 

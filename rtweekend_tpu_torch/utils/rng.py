@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from rtweekend_tpu_torch.utils import vecmath
+
 # Stream ids: camera raygen uses fixed high streams; bounce b uses
 # streams BOUNCE_STREAM0 + 2*b and +2*b+1 (same ids as the JAX package).
 STREAM_CAMERA0 = 0xC0FFEE00
@@ -83,6 +85,41 @@ def uniform4(seed, pixel_ids, sample_ids, stream, dtype=torch.float32):
     dev = pixel_ids.device
     x, y, z, w = pcg4d(pixel_ids, sample_ids, stream, seed, device=dev)
     return torch.stack([to_unit(v, dtype) for v in (x, y, z, w)], dim=-1)
+
+
+def gauss4_from_u4(u):
+    """Box-Muller: 4 uniforms [..., 4] -> 4 independent standard normals.
+    log(1-u) with 1-u in [2^-24, 1], so no lane is -inf."""
+    two_pi = 2.0 * math.pi
+    r0 = torch.sqrt(-2.0 * torch.log1p(-u[..., 0]))
+    r1 = torch.sqrt(-2.0 * torch.log1p(-u[..., 2]))
+    t0 = two_pi * u[..., 1]
+    t1 = two_pi * u[..., 3]
+    return torch.stack(
+        [r0 * torch.cos(t0), r0 * torch.sin(t0), r1 * torch.cos(t1), r1 * torch.sin(t1)],
+        dim=-1,
+    )
+
+
+def unit_vector(seed, pixel_ids, sample_ids, stream, dtype=torch.float32):
+    """Uniform direction on the unit sphere from normalized gaussians
+    (replaces the rejection-sampled randomUnitVector, rand.zig:38-40)."""
+    g = gauss4_from_u4(uniform4(seed, pixel_ids, sample_ids, stream, dtype))
+    return vecmath.normalized(g[..., :3])
+
+
+def cbrt(u):
+    """Cube root of u >= 0. PyTorch has no cbrt: u ** (1/3) rounds 1/3 and
+    then the power, so it can sit an ulp or two off jnp.cbrt
+    (tests/test_torch_rng.py measures the gap)."""
+    return u.pow(1.0 / 3.0)
+
+
+def in_unit_sphere(seed, pixel_ids, sample_ids, stream, radius_u, dtype=torch.float32):
+    """Uniform point in the unit ball: a gaussian direction scaled by the
+    cube root of radius_u (volume element r^2 dr; rand.zig:22-28)."""
+    d = unit_vector(seed, pixel_ids, sample_ids, stream, dtype)
+    return d * cbrt(radius_u)[..., None]
 
 
 def in_unit_disk_from_u(u1, u2):
