@@ -4,11 +4,17 @@
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
-  1. device    card, power limit, torch/CUDA versions, kernel build time;
+  1. device    card, power limit, torch/CUDA versions, kernel build time
+               and every instantiation's ptxas registers and spills;
   2. kernel    the hand-written bounce kernel against its plain PyTorch
-               version on the card: 65,536 camera rays of final_scene and
-               cornell_box (one segment of 8 bounces), then every segment
-               of one sample batch of the main path at its own shape;
+               version on the card: 65,536 camera rays (one segment of 8
+               bounces) of final_scene, cornell_box and the scenes of the
+               noise (two_perlin_spheres, simple_light), image (earth) and
+               gradient-sky (golden_scene) variants; then every segment of
+               one sample batch of the main path at its own shape, for
+               final_scene 1200x675 and for golden_scene, two_perlin_spheres,
+               simple_light and earth at 600x400 (each variant's ms/launch
+               and bound);
   3. compact   compacted driver bit-equal to the uncompacted kernel; an
                over-tight schedule raises the overflow flag, and the render
                driver recovers it;
@@ -19,32 +25,44 @@ Phases, each printed as one JSON line:
                the image goes to smoke_out/;
   6. profile   the main path once more under torch.profiler: device time
                by kernel and the card's idle share;
-  7. winners_vs_plain  the kernel's want_winners variant against the
-               plain version (final_scene, cornell_box; 65,536 rays, depth
-               8) on entries alive on both sides, radiance bit-equal to the
-               radiance-only launch, ms/launch with and without winners;
-  8. replay_vs_kernel  the differentiable replay's radiance on kernel
+  7. scenes    render_image of every scene at its own default size, depth
+               50, 16 spp, through the normal entry point on the default
+               device: wall seconds, primary rays/s, launches of each
+               variant, a PNG in smoke_out/;
+  8. winners_vs_plain  the kernel's want_winners variant against the
+               plain version (final_scene, cornell_box, golden_scene,
+               two_perlin_spheres; 65,536 rays, depth 8) on entries alive
+               on both sides, radiance bit-equal to the radiance-only
+               launch, ms/launch with and without winners;
+  9. replay_vs_kernel  the differentiable replay's radiance on kernel
                winners against the kernel's own radiance;
-  9. grad_vs_plain  loss gradients through kernel winners against
-               gradients through plain winners (final_scene 64x36, 2 spp,
-               depth 8), flat sky and gradient-sky replay;
- 10. train     the training path: sharded_train_step on final_scene at
-               1200x675, depth 50, 4 spp, 2 steps (4 blocks of 810,000
+ 10. grad_vs_plain  loss gradients through kernel winners against
+               gradients through plain winners: final_scene 64x36 under its
+               flat sky, golden_scene 60x40 under its own gradient sky
+               (2 spp, depth 8);
+ 11. train     the training path: sharded_train_step on final_scene at
+               1200x675, depth 50, 4 spp, one step (4 blocks of 810,000
                rays each), with the seconds of each pass, launches and peak
-               memory; then one more step under torch.profiler.
+               memory; then one more step under torch.profiler;
+ 12. train_golden  sharded_train_step on golden_scene at 600x400, 4 spp,
+               depth 50, 2 steps (one block of 960,000 rays) under its own
+               sky, with nonzero c0, radius and albedo gradients; then one
+               more step under torch.profiler.
 Then the `kernels` line and, last, the result line. Any failed check
 raises and the script exits non-zero; without a card it exits non-zero
 before printing any result. Imports nothing of JAX or rtweekend_tpu.
 
-Bars (from tests/test_pallas.py:52-69): at most 0.5% of radiance lanes
-off by more than 1e-3, channel means within 2%; winners: at most 0.5% of
+Bars (from tests/test_pallas.py:52-102): at most 0.5% of radiance lanes
+off by more than 1e-3, channel means within 2% (plus atol 5e-3 for the
+texture scenes and for the main path's late segments); winners: at most 0.5% of
 live entries differ; replay vs kernel: at most 1% of elements off by a
 relative 1e-3 (tests/test_replay.py:58-59), channel means within 2%;
 gradients through kernel winners against gradients through plain winners:
 on the rays whose winners agree on every bounce (the same paths),
 relative L2 <= 1e-4 per parameter group; over all rays, where the <=0.5%
 of diverged rays add different paths, the albedo gradient of the MSE
-loss within relative L2 1e-2 (flat sky), the rest reported. Discrete decisions
+loss within relative L2 1e-2 (flat sky), the rest reported; under the
+gradient sky the c0 and radius gradients must be nonzero. Discrete decisions
 (closest root, Schlick draw, checker sign) can flip on rays whose
 candidate t differ in the last bits between the two summation orders;
 such a ray's path then legitimately diverges, hence a statistical bar.
@@ -62,14 +80,29 @@ OUT_DIR = "smoke_out"
 DEVICE = "cuda"
 CMP_SIDE = 256      # kernel vs plain on CMP_SIDE**2 = 65,536 camera rays
 MAIN_W, MAIN_H, MAIN_SPP, MAIN_DEPTH = 1200, 675, 16, 50
-TRAIN_SPP, TRAIN_STEPS, TRAIN_CHUNK = 4, 2, 1 << 20
+TRAIN_SPP, TRAIN_STEPS, TRAIN_CHUNK = 4, 1, 1 << 20
+GOLDEN_STEPS = 2
 GRAD_W, GRAD_H, GRAD_SPP, GRAD_DEPTH = 64, 36, 2, 8
-LANE_TOL, LANE_FRAC, MEAN_RTOL = 1e-3, 0.005, 0.02
+GOLDEN_GRAD_W, GOLDEN_GRAD_H = 60, 40
+SCENES_SPP = 16
+LANE_TOL, LANE_FRAC, MEAN_RTOL, TEX_MEAN_ATOL = 1e-3, 0.005, 0.02, 5e-3
 REPLAY_FRAC, GRAD_RTOL, SAME_PATH_RTOL = 0.01, 1e-2, 1e-4
-SKY = ((1.0, 1.0, 1.0), (0.5, 0.7, 1.0))   # golden_scene's gradient sky
+# the kernel variant each added scene exercises, and its means atol
+# (tests/test_pallas.py:90-102 for the texture scenes; golden_scene takes
+# final_scene's bar)
+VARIANT_SCENES = (("two_perlin_spheres", "noise", TEX_MEAN_ATOL),
+                  ("simple_light", "noise", TEX_MEAN_ATOL),
+                  ("earth", "image", TEX_MEAN_ATOL),
+                  ("golden_scene", "sky", 0.0))
+# scenes lit only by their lights: the darkness check is scaled down
+LIGHT_ONLY = ("simple_light", "cornell_box")
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# arithmetic operations of the texture work per live hit (noise, image)
+# and of the gradient sky per live miss, counted from csrc/megakernel.cu
+# (its source note lists the terms)
+NOISE_OPS, IMAGE_OPS, SKY_OPS = 1338, 118, 15
 
 
 def emit(phase, **kw):
@@ -115,27 +148,51 @@ def compare(kernel_rad, plain_rad, what, mean_atol=0.0):
                 kernel_means=km.tolist(), plain_means=pm.tolist())
 
 
-def segment_bound(tables, state, seed, bg, b0, n_b, mk, out_bytes=0):
+def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk, out_bytes=0):
     """Least time (ms) the card could take for this segment's work on this
-    data: the coefficient march of every live ray-bounce (17 multiply-adds
-    per coefficient row, 2 FLOP each, plus the 2-FLOP discriminant per
-    sphere) at the fp32 peak, or the state and tables read and written
-    once (plus `out_bytes` of other outputs) at the HBM rate, whichever is
-    larger. Live rays are counted by stepping the kernel one bounce at a
-    time (not part of the main path's count, which is reset before the
-    main path)."""
-    rows = tables.coef.shape[0]
-    flop_per_rb = 2 * 17 * rows + 2 * tables.s_pad
-    live_rb = 0
+    data, over the scene's real primitives (the padding of the packed
+    tables left out): the coefficient march of every live ray-bounce (17
+    multiply-adds per coefficient row, 2 FLOP each, over the 2S+6R real
+    rows, plus the 2-FLOP discriminant per real sphere), the noise and
+    image texture work of every live hit on such a texture and the
+    gradient sky of every live miss, at the fp32 peak; or the state read
+    and written once, the real rows of the tables read once (17 features
+    per coefficient row, 34 attributes per primitive, the 6 KB Perlin
+    tables and the texel atlas where the variant reads them), plus
+    `out_bytes` of other outputs, at the HBM rate; whichever is larger.
+    Live rays and their hits are counted by stepping the kernel's winners
+    variant one bounce at a time (not part of the main path's counts,
+    which are reset before each main path)."""
+    import numpy as np
+
+    ns = int(scene.spheres.active.sum().item())
+    nr = int(scene.rects.active.sum().item())
+    rows = 2 * ns + 6 * nr
+    flop_per_rb = 2 * 17 * rows + 2 * ns
+    has_sky = np.asarray(bg).ndim == 2
+    ttype = tables.attr_i[mk._AI_TTYPE]
+    live_rb = noise_hits = image_hits = live_misses = 0
     st = state
     for k in range(n_b):
-        live_rb += int((st[:, mk.S_AL] > 0.5).sum().item())
-        _, st = mk.trace_segment(tables, st, seed, bg, b0 + k, 1)
+        live = st[:, mk.S_AL] > 0.5
+        live_rb += int(live.sum().item())
+        _, st, win = mk.trace_segment(tables, st, seed, bg, b0 + k, 1, want_winners=True)
+        w = win[0]
+        tt = ttype[w.clamp(min=0).long()]
+        noise_hits += int(((w >= 0) & (tt == mk.TEX_NOISE)).sum().item())
+        image_hits += int(((w >= 0) & (tt == mk.TEX_IMAGE)).sum().item())
+        live_misses += int((live & (w < 0)).sum().item())
+    ops = (live_rb * flop_per_rb + noise_hits * NOISE_OPS * tables.has_noise
+           + image_hits * IMAGE_OPS * tables.has_image + live_misses * SKY_OPS * has_sky)
     m = state.shape[0]
-    nbytes = out_bytes + (2 * m * 14 + 3 * m) * 4 + sum(
-        t.numel() * t.element_size() for t in (tables.coef, tables.attr_f, tables.attr_i))
-    return dict(live_ray_bounces=live_rb,
-                ops_ms=live_rb * flop_per_rb / FP32_FLOPS * 1e3,
+    table_bytes = (rows * 17 + (29 + 5) * (ns + nr)) * 4
+    table_bytes += 2 * 768 * 4 if tables.has_noise else 0
+    texels = int((scene.image_w.long() * scene.image_h.long()).sum().item())
+    table_bytes += texels * 4 if tables.has_image else 0
+    nbytes = out_bytes + (2 * m * 14 + 3 * m) * 4 + table_bytes
+    return dict(spheres=ns, rects=nr, live_ray_bounces=live_rb, noise_hits=noise_hits,
+                image_hits=image_hits, live_misses=live_misses,
+                ops_ms=ops / FP32_FLOPS * 1e3,
                 bytes_ms=nbytes / HBM_BYTES_S * 1e3)
 
 
@@ -246,6 +303,7 @@ def main() -> int:
         return 2
     import rtweekend_tpu_torch  # noqa: F401  (sets fp32 matmul policy)
     from rtweekend_tpu_torch.config import SCENE_DEFAULTS, RenderConfig
+    from rtweekend_tpu_torch.models import builders
     from rtweekend_tpu_torch.models.builders import build_scene
     from rtweekend_tpu_torch.ops.cuda import build
     from rtweekend_tpu_torch.ops.cuda import megakernel as mk
@@ -273,9 +331,13 @@ def main() -> int:
     _, built = build.load()
     ptxas = [ln.strip() for ln in built.log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
+    # earth's texture (and with it the image variant's work) depends on
+    # whether the texture file is present
+    earth_tex = (f"file {builders.EARTH_TEXTURE_PATH}"
+                 if os.path.exists(builders.EARTH_TEXTURE_PATH) else "procedural")
     emit("device", name=kind, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, kernel_lib=os.path.relpath(built.path),
-         build_s=built.seconds, ptxas=ptxas)
+         build_s=built.seconds, earth_texture=earth_tex, ptxas=ptxas)
     print(smi, flush=True)
 
     def rays(name, side, aspect, n):
@@ -286,62 +348,86 @@ def main() -> int:
         sid = torch.div(ids, side * side, rounding_mode="floor")
         return (*generate_rays(cam, side, side, pid, sid, 42), pid, sid)
 
+    def aspect_of(name):
+        p = SCENE_DEFAULTS[name]
+        return p["width"] / p["height"]
+
     # ---- 2. kernel vs plain ----
-    for name, depth in (("final_scene", 8), ("cornell_box", 8)):
+    cmp_scenes = [("final_scene", 16 / 9, 0.0), ("cornell_box", 1.0, 0.0)] + [
+        (name, aspect_of(name), atol) for name, _, atol in VARIANT_SCENES]
+    for name, aspect, atol in cmp_scenes:
+        depth = 8
         scene = build_scene(name, device=dev)
         tables = mk.pack_scene(scene)
         bg = SCENE_DEFAULTS[name]["background"]
-        aspect = 16 / 9 if name == "final_scene" else 1.0
         o, d, t, pid, sid = rays(name, CMP_SIDE, aspect, CMP_SIDE * CMP_SIDE)
         args = (tables, o, d, t, pid, sid, 42, bg, depth)
         rk = mk.trace_paths(*args, kernel="cuda")
         rp = mk.trace_paths(*args, kernel="torch")
         torch.cuda.synchronize()
-        res = compare(rk.t(), rp.t(), f"{name} {CMP_SIDE ** 2} rays depth {depth}")
+        res = compare(rk.t(), rp.t(), f"{name} {CMP_SIDE ** 2} rays depth {depth}",
+                      mean_atol=atol)
+        bnd = segment_bound(tables, scene, mk.init_state(o, d, t, pid, sid), 42, bg, 0,
+                            depth, mk)
         emit("kernel_vs_plain", scene=name, rays=CMP_SIDE ** 2, depth=depth, **res,
              kernel_ms=gpu_ms(lambda: mk.trace_paths(*args, kernel="cuda"), 5),
              plain_ms=gpu_ms(lambda: mk.trace_paths(*args, kernel="torch"), 2),
-             card=card)
+             **bnd, bound_ms=max(bnd["ops_ms"], bnd["bytes_ms"]), card=card)
 
-    # every segment of one sample batch of the main path, at its own shape
+    def main_segments(name, width, height):
+        """Every segment of one sample batch (1 spp) of the scene's render
+        at width x height, kernel against plain at its own shape."""
+        scene = build_scene(name, device=dev)
+        tables = mk.pack_scene(scene)
+        bg = SCENE_DEFAULTS[name]["background"]
+        cam = render_mod.camera_for_scene(name, width / height, dev)
+        o, d, t, pid, sid = render_mod._gen_batch_rays(
+            cam, 42, 0, width=width, height=height, n_samples=1)
+        n = o.shape[0]
+        state = mk.init_state(o, d, t, pid, sid)
+        count = torch.tensor(n, device=dev)
+        segs = []
+        for b0, n_b, out_cap in mk.schedule(n, MAIN_DEPTH, render_mod._capacities_for(bg)):
+            if out_cap < state.shape[0]:
+                state, ovf = mk.compact(state, count, out_cap)
+                check(not ovf.item(), f"{name} main-path schedule overflowed at bounce {b0}")
+            rk, sk = mk.trace_segment(tables, state, 42, bg, b0, n_b)
+            rp, sp = mk.trace_segment_plain(tables, state, 42, bg, b0, n_b)
+            torch.cuda.synchronize()
+            # late segments hold a few thousand live rays, whose mean radiance
+            # is ~1e-4: the means bar gets test_pallas.py:89-91's atol 5e-3
+            res = compare(rk, rp, f"{name} main-path segment b0={b0} x{n_b} cap={out_cap}",
+                          mean_atol=TEX_MEAN_ATOL)
+            # alive fractions are reported, not held to a bar: the rays still
+            # alive after bounce 20 are trapped between glass and metal, where
+            # a last-bit difference grows into a different path within the
+            # segment's 30 bounces; their radiance is held by compare() above
+            alive_k = (sk[:, mk.S_AL] > 0.5).float().mean().item()
+            alive_p = (sp[:, mk.S_AL] > 0.5).float().mean().item()
+            k_ms = gpu_ms(lambda: mk.trace_segment(tables, state, 42, bg, b0, n_b), 3)
+            p_ms = gpu_ms(lambda: mk.trace_segment_plain(tables, state, 42, bg, b0, n_b), 1)
+            bnd = segment_bound(tables, scene, state, 42, bg, b0, n_b, mk)
+            seg = dict(b0=b0, bounces=n_b, cap=out_cap, **bnd, kernel_ms=k_ms, plain_ms=p_ms,
+                       bound_ms=max(bnd["ops_ms"], bnd["bytes_ms"]),
+                       alive_out=alive_k, alive_out_plain=alive_p, max_abs=res["max_abs"],
+                       diverged_frac=res["diverged_frac"])
+            segs.append(seg)
+            emit("kernel_vs_plain_main_segment", scene=name, width=width, height=height,
+                 **seg, card=card)
+            state = sk
+            count = (state[:, mk.S_AL] > 0.5).sum()
+        return segs
+
+    # every segment of one sample batch of each main path, at its own shape
+    segs = main_segments("final_scene", MAIN_W, MAIN_H)
+    variant_segs = {"sky": [], "noise": [], "image": []}
+    for name, v in (("golden_scene", "sky"), ("two_perlin_spheres", "noise"),
+                    ("simple_light", "noise"), ("earth", "image")):
+        variant_segs[v] += main_segments(name, SCENE_DEFAULTS[name]["width"],
+                                         SCENE_DEFAULTS[name]["height"])
     scene = build_scene("final_scene", device=dev)
     tables = mk.pack_scene(scene)
     bg = SCENE_DEFAULTS["final_scene"]["background"]
-    cam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
-    o, d, t, pid, sid = render_mod._gen_batch_rays(
-        cam, 42, 0, width=MAIN_W, height=MAIN_H, n_samples=1)
-    n = o.shape[0]
-    state = mk.init_state(o, d, t, pid, sid)
-    count = torch.tensor(n, device=dev)
-    segs = []
-    for b0, n_b, out_cap in mk.schedule(n, MAIN_DEPTH, render_mod._capacities_for(bg)):
-        if out_cap < state.shape[0]:
-            state, ovf = mk.compact(state, count, out_cap)
-            check(not ovf.item(), f"main-path schedule overflowed at bounce {b0}")
-        rk, sk = mk.trace_segment(tables, state, 42, bg, b0, n_b)
-        rp, sp = mk.trace_segment_plain(tables, state, 42, bg, b0, n_b)
-        torch.cuda.synchronize()
-        # late segments hold a few thousand live rays, whose mean radiance
-        # is ~1e-4: the means bar gets test_pallas.py:89-91's atol 5e-3
-        res = compare(rk, rp, f"main-path segment b0={b0} x{n_b} cap={out_cap}",
-                      mean_atol=5e-3)
-        # alive fractions are reported, not held to a bar: the rays still
-        # alive after bounce 20 are trapped between glass and metal, where
-        # a last-bit difference grows into a different path within the
-        # segment's 30 bounces; their radiance is held by compare() above
-        alive_k = (sk[:, mk.S_AL] > 0.5).float().mean().item()
-        alive_p = (sp[:, mk.S_AL] > 0.5).float().mean().item()
-        k_ms = gpu_ms(lambda: mk.trace_segment(tables, state, 42, bg, b0, n_b), 3)
-        p_ms = gpu_ms(lambda: mk.trace_segment_plain(tables, state, 42, bg, b0, n_b), 1)
-        bnd = segment_bound(tables, state, 42, bg, b0, n_b, mk)
-        seg = dict(b0=b0, bounces=n_b, cap=out_cap, **bnd, kernel_ms=k_ms, plain_ms=p_ms,
-                   bound_ms=max(bnd["ops_ms"], bnd["bytes_ms"]),
-                   alive_out=alive_k, alive_out_plain=alive_p, max_abs=res["max_abs"],
-                   diverged_frac=res["diverged_frac"])
-        segs.append(seg)
-        emit("kernel_vs_plain_main_segment", **seg, card=card)
-        state = sk
-        count = (state[:, mk.S_AL] > 0.5).sum()
 
     # ---- 3. compaction on the card ----
     o, d, t, pid, sid = rays("final_scene", 32, 16 / 9, 2500)
@@ -383,15 +469,15 @@ def main() -> int:
                        samples_per_pixel=MAIN_SPP, max_depth=MAIN_DEPTH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mk.trace_segment.launches = 0
-    mk.trace_segment.winners_launches = 0
+    mk.reset_launch_counts()
     t0 = time.perf_counter()
     img, accum = render_mod.render_image(cfg)   # default device: the card
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = mk.trace_segment.launches
+    counts = mk.launch_counts()
+    launches = counts["launches"]
     check(launches > 0, "main path launched no bounce kernel")
-    check(mk.trace_segment.winners_launches == 0, "the render path launched winners")
+    check(counts["winners_launches"] == 0, "the render path launched winners")
     check(accum.shape == (MAIN_H, MAIN_W, 3) and img.shape == (MAIN_H, MAIN_W, 3),
           f"shape {tuple(accum.shape)}")
     check(bool(torch.isfinite(accum).all().item()), "non-finite framebuffer")
@@ -408,12 +494,44 @@ def main() -> int:
         scene="final_scene", width=MAIN_W, height=MAIN_H, samples_per_pixel=4,
         max_depth=MAIN_DEPTH)), spp=4), card=card)
 
-    # ---- 7. winners variant vs plain ----
-    for name, depth in (("final_scene", 8), ("cornell_box", 8)):
+    # ---- 7. every scene through the normal entry point ----
+    variant_launches = {"noise": 0, "image": 0, "sky": 0}
+    for name, p in SCENE_DEFAULTS.items():
+        cfg = RenderConfig(scene=name, width=p["width"], height=p["height"],
+                           samples_per_pixel=SCENES_SPP, max_depth=MAIN_DEPTH)
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        img, accum = render_mod.render_image(cfg)   # default device: the card
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = mk.launch_counts()
+        for v in variant_launches:
+            variant_launches[v] += counts[f"{v}_launches"]
+        check(counts["launches"] > 0, f"{name}: no bounce kernel launched")
+        for scene_name, v, _ in VARIANT_SCENES:
+            if scene_name == name:
+                check(counts[f"{v}_launches"] == counts["launches"],
+                      f"{name}: not every launch was the {v} variant")
+        check(accum.shape == (cfg.height, cfg.width, 3), f"{name}: shape {tuple(accum.shape)}")
+        check(bool(torch.isfinite(accum).all().item()), f"{name}: non-finite framebuffer")
+        floor = (0.02 if name in LIGHT_ONLY else 0.1) * SCENES_SPP
+        check(float(accum.mean().item()) > floor, f"{name}: framebuffer implausibly dark")
+        png = os.path.join(OUT_DIR, f"chip_smoke_{name}.png")
+        image_mod.write_png(png, img)
+        emit("scenes", scene=name, width=cfg.width, height=cfg.height, spp=SCENES_SPP,
+             depth=MAIN_DEPTH, wall_s=wall,
+             primary_rays_per_s=cfg.width * cfg.height * SCENES_SPP / wall,
+             mean_radiance=float(accum.mean().item()) / SCENES_SPP, **counts, png=png,
+             card=card)
+
+    # ---- 8. winners variant vs plain ----
+    for name, depth in (("final_scene", 8), ("cornell_box", 8), ("golden_scene", 8),
+                        ("two_perlin_spheres", 8)):
         wscene = build_scene(name, device=dev)
         wtab = mk.pack_scene(wscene)
         wbg = SCENE_DEFAULTS[name]["background"]
-        aspect = 16 / 9 if name == "final_scene" else 1.0
+        aspect = 1.0 if name == "cornell_box" else aspect_of(name)
         wrays = rays(name, CMP_SIDE, aspect, CMP_SIDE * CMP_SIDE)
         wstate = mk.init_state(*wrays)
         rk, wk, _, res = winners_check(mk, wtab, wstate, wbg, depth,
@@ -426,7 +544,7 @@ def main() -> int:
         if name == "final_scene":
             keep = (wscene, wbg, wrays, rk, wk)
 
-    # ---- 8. replay on kernel winners vs the kernel's radiance ----
+    # ---- 9. replay on kernel winners vs the kernel's radiance ----
     wscene, wbg, wrays, rk, wk = keep
     n = wrays[0].shape[0]
     with torch.no_grad():
@@ -449,61 +567,64 @@ def main() -> int:
          kernel_means=km.tolist(), replay_forward_ms=gpu_ms(replay_fwd, 3), card=card)
     del keep, rep, ker, rk, wk
 
-    # ---- 9. gradients through kernel winners vs plain winners ----
-    gscene = build_scene("final_scene", device=dev)
-    gcam = render_mod.camera_for_scene("final_scene", GRAD_W / GRAD_H, dev)
-    gbg = SCENE_DEFAULTS["final_scene"]["background"]
-    grays = render_mod._gen_batch_rays(gcam, 42, 0, width=GRAD_W, height=GRAD_H,
-                                       n_samples=GRAD_SPP)
-    gn_pix = GRAD_W * GRAD_H
-    gtarget = torch.full((GRAD_H, GRAD_W, 3), 0.5, device=dev)
-    wins = {kern: vjp.kernel_winners(gscene, *grays, 42, gbg, GRAD_DEPTH, kernel=kern)[1]
-            for kern in ("cuda", "torch")}
-    # rays whose kernel and plain winners agree on every bounce take the
-    # same path on both sides; the others are the diverged rays that
-    # winners_vs_plain counts
-    same = (wins["cuda"] == wins["torch"]).all(0).float()
+    # ---- 10. gradients through kernel winners vs plain winners ----
+    def grad_check(name, width, height):
+        """Loss gradients through kernel winners against plain winners, each
+        scene under its own sky."""
+        gscene = build_scene(name, device=dev)
+        gcam = render_mod.camera_for_scene(name, width / height, dev)
+        gbg = SCENE_DEFAULTS[name]["background"]
+        grays = render_mod._gen_batch_rays(gcam, 42, 0, width=width, height=height,
+                                           n_samples=GRAD_SPP)
+        gtarget = torch.full((height, width, 3), 0.5, device=dev)
+        wins = {kern: vjp.kernel_winners(gscene, *grays, 42, gbg, GRAD_DEPTH,
+                                         kernel=kern)[1]
+                for kern in ("cuda", "torch")}
+        # rays whose kernel and plain winners agree on every bounce take the
+        # same path on both sides; the others are the diverged rays that
+        # winners_vs_plain counts
+        same = (wins["cuda"] == wins["torch"]).all(0).float()
 
-    def grads_through(kernel, sky):
-        """(MSE loss of the mean image, its grads, same-path loss grads)"""
-        params = {k: v.detach().clone().requires_grad_(True)
-                  for k, v in shard.extract_params(gscene).items()}
-        plist = list(params.values())
-        if sky is None:   # flat sky: the entry point, render_mean through make_loss
-            full = make_loss(gscene, gcam, gtarget, gbg, 42, width=GRAD_W, height=GRAD_H,
+        def grads_through(kernel):
+            """(MSE loss of the mean image, its grads, same-path loss grads)"""
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in shard.extract_params(gscene).items()}
+            plist = list(params.values())
+            # the entry point: render_mean through make_loss
+            full = make_loss(gscene, gcam, gtarget, gbg, 42, width=width, height=height,
                              spp=GRAD_SPP, max_depth=GRAD_DEPTH, kernel=kernel)(params)
             g_full = torch.autograd.grad(full, plist)
-        rad = trace_paths_replay_fast(shard.merge_params(gscene, params), *grays, 42,
-                                      gbg if sky is None else sky, wins[kernel])
-        if sky is not None:   # flat-sky winners replayed under the gradient sky
-            full = ((rad.reshape(gn_pix, GRAD_SPP, 3).mean(1) - 0.5) ** 2).mean()
-            g_full = torch.autograd.grad(full, plist, retain_graph=True)
-        same_loss = (((rad - 0.5) ** 2).sum(1) * same).sum() / rad.shape[0]
-        g_same = torch.autograd.grad(same_loss, plist)
-        return full.item(), dict(zip(params, g_full)), dict(zip(params, g_same))
+            rad = trace_paths_replay_fast(shard.merge_params(gscene, params), *grays, 42,
+                                          gbg, wins[kernel])
+            same_loss = (((rad - 0.5) ** 2).sum(1) * same).sum() / rad.shape[0]
+            g_same = torch.autograd.grad(same_loss, plist)
+            return full.item(), dict(zip(params, g_full)), dict(zip(params, g_same))
 
-    for sky_name, sky in (("flat", None), ("gradient", SKY)):
-        lk, fk, sk_ = grads_through("cuda", sky)
-        lp, fp, sp_ = grads_through("torch", sky)
+        sky_name = "gradient" if len(gbg) == 2 else "flat"
+        lk, fk, sk_ = grads_through("cuda")
+        lp, fp, sp_ = grads_through("torch")
         rel_full = {k: rel_l2(fk[k], fp[k]) for k in fk}
         rel_same = {k: rel_l2(sk_[k], sp_[k]) for k in sk_}
         for k in fk:
             check(bool(torch.isfinite(fk[k]).all() and torch.isfinite(sk_[k]).all()),
-                  f"grad {k} not finite ({sky_name} sky)")
+                  f"{name}: grad {k} not finite")
             check(rel_same[k] <= SAME_PATH_RTOL,
-                  f"same-path grad {k}: relative L2 {rel_same[k]} ({sky_name} sky)")
-        check(fk["color"].abs().sum().item() > 0, "zero albedo gradient")
-        if sky is None:
+                  f"{name}: same-path grad {k}: relative L2 {rel_same[k]}")
+        check(fk["color"].abs().sum().item() > 0, f"{name}: zero albedo gradient")
+        if sky_name == "flat":
             check(rel_full["color"] <= GRAD_RTOL,
-                  f"albedo grad: relative L2 {rel_full['color']} (flat sky)")
+                  f"{name}: albedo grad: relative L2 {rel_full['color']} (flat sky)")
         else:
             for k in ("c0", "radius"):
-                check(fk[k].abs().sum().item() > 0, f"zero {k} gradient under the sky")
-        emit("grad_vs_plain", scene="final_scene", size=f"{GRAD_W}x{GRAD_H}", spp=GRAD_SPP,
+                check(fk[k].abs().sum().item() > 0, f"{name}: zero {k} gradient under the sky")
+        emit("grad_vs_plain", scene=name, size=f"{width}x{height}", spp=GRAD_SPP,
              depth=GRAD_DEPTH, sky=sky_name, diverged_rays=1.0 - same.mean().item(),
              loss_kernel=lk, loss_plain=lp, rel_l2_full=rel_full, rel_l2_same_path=rel_same,
              grad_l2={k: torch.linalg.norm(v.double()).item() for k, v in fk.items()},
              card=card)
+
+    grad_check("final_scene", GRAD_W, GRAD_H)
+    grad_check("golden_scene", GOLDEN_GRAD_W, GOLDEN_GRAD_H)
 
     # ---- the winners variant at the train step's pass-2 shape ----
     tcam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
@@ -515,7 +636,7 @@ def main() -> int:
     win_ms = gpu_ms(lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH,
                                              want_winners=True), 3)
     rad_ms = gpu_ms(lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH), 3)
-    win_bnd = segment_bound(tables, pstate, 42, bg, 0, MAIN_DEPTH, mk,
+    win_bnd = segment_bound(tables, scene, pstate, 42, bg, 0, MAIN_DEPTH, mk,
                             out_bytes=MAIN_DEPTH * pstate.shape[0] * 4)
     emit("winners_pass2_shape", lanes=pstate.shape[0], depth=MAIN_DEPTH, **win_res,
          kernel_ms_winners=win_ms, kernel_ms_radiance_only=rad_ms, plain_ms=win_plain_ms,
@@ -523,84 +644,112 @@ def main() -> int:
     del pstate, o, d, t, pid, sid
     torch.cuda.empty_cache()
 
-    # ---- 10. the training path at full width ----
-    tscene = build_scene("final_scene", device=dev)
-    target = shard.kernel_mean_image(tscene, tcam, MAIN_W, MAIN_H, TRAIN_SPP, MAIN_DEPTH,
-                                     bg, 42, rays_per_chunk=TRAIN_CHUNK)
-    p0 = shard.extract_params(tscene)
-    tscene = shard.merge_params(tscene, dict(p0, color=p0["color"] * 0.8))  # albedo off
-    train_kw = dict(lr=1.0, rays_per_chunk=TRAIN_CHUNK)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    mk.trace_segment.launches = 0
-    mk.trace_segment.winners_launches = 0
-    t0 = time.perf_counter()
-    for step in range(TRAIN_STEPS):
-        l0, w0 = mk.trace_segment.launches, mk.trace_segment.winners_launches
-        tm = {}
-        ts = time.perf_counter()
-        params, loss = shard.sharded_train_step(
-            tscene, tcam, target, MAIN_W, MAIN_H, TRAIN_SPP, MAIN_DEPTH, bg, 42,
-            timings=tm, **train_kw)
+    # ---- 11, 12. the training path at full width ----
+    def train(name, width, height, steps, phase, check_geometry):
+        """`steps` train steps from the albedo-perturbed scene towards the
+        pass-1 mean image of the true scene, then one profiled step.
+        Returns the launch counts of the timed steps."""
+        tscene = build_scene(name, device=dev)
+        tcam = render_mod.camera_for_scene(name, width / height, dev)
+        tbg = SCENE_DEFAULTS[name]["background"]
+        target = shard.kernel_mean_image(tscene, tcam, width, height, TRAIN_SPP, MAIN_DEPTH,
+                                         tbg, 42, rays_per_chunk=TRAIN_CHUNK)
+        p0 = shard.extract_params(tscene)
+        tscene = shard.merge_params(tscene, dict(p0, color=p0["color"] * 0.8))  # albedo off
+        train_kw = dict(lr=1.0, rays_per_chunk=TRAIN_CHUNK)
         torch.cuda.synchronize()
-        step_s = time.perf_counter() - ts
-        before = shard.extract_params(tscene)
-        grads = {k: before[k] - params[k] for k in params}   # lr = 1
-        check(bool(torch.isfinite(loss).item()), f"step {step}: loss not finite")
-        for k, g in grads.items():
-            check(bool(torch.isfinite(g).all()), f"step {step}: grad {k} not finite")
-        check(grads["color"].abs().sum().item() > 0, f"step {step}: zero albedo gradient")
-        emit("train_step", step=step, loss=loss.item(), wall_s=step_s, **tm,
-             launches_forward=mk.trace_segment.launches - l0 - (
-                 mk.trace_segment.winners_launches - w0),
-             launches_winners=mk.trace_segment.winners_launches - w0,
-             peak_mem_bytes=torch.cuda.max_memory_allocated(),
-             grad_l2={k: torch.linalg.norm(g.double()).item() for k, g in grads.items()},
-             card=card)
-        tscene = shard.merge_params(tscene, params)
-    train_wall = time.perf_counter() - t0
-    train_launches = mk.trace_segment.launches
-    train_winners = mk.trace_segment.winners_launches
-    check(train_winners > 0, "the train path launched no winners kernel")
-    check(train_launches - train_winners > 0, "the train path launched no radiance kernel")
-    emit("train", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=TRAIN_SPP,
-         depth=MAIN_DEPTH, steps=TRAIN_STEPS, rays_per_chunk=TRAIN_CHUNK, wall_s=train_wall,
-         launches=train_launches, winners_launches=train_winners,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
-    emit("profile_train", **profile_fn(lambda: shard.sharded_train_step(
-        tscene, tcam, target, MAIN_W, MAIN_H, TRAIN_SPP, MAIN_DEPTH, bg, 42, **train_kw),
-        what="one train step"), card=card)
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for step in range(steps):
+            before_counts = mk.launch_counts()
+            tm = {}
+            ts = time.perf_counter()
+            params, loss = shard.sharded_train_step(
+                tscene, tcam, target, width, height, TRAIN_SPP, MAIN_DEPTH, tbg, 42,
+                timings=tm, **train_kw)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - ts
+            counts = {k: v - before_counts[k] for k, v in mk.launch_counts().items()}
+            before = shard.extract_params(tscene)
+            grads = {k: before[k] - params[k] for k in params}   # lr = 1
+            check(bool(torch.isfinite(loss).item()), f"{name} step {step}: loss not finite")
+            for k, g in grads.items():
+                check(bool(torch.isfinite(g).all()), f"{name} step {step}: grad {k} not finite")
+            for k in ("c0", "radius", "color") if check_geometry else ("color",):
+                check(grads[k].abs().sum().item() > 0, f"{name} step {step}: zero {k} gradient")
+            emit(f"{phase}_step", scene=name, step=step, loss=loss.item(), wall_s=step_s, **tm,
+                 launches_forward=counts["launches"] - counts["winners_launches"],
+                 launches_winners=counts["winners_launches"],
+                 launches_sky=counts["sky_launches"],
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 grad_l2={k: torch.linalg.norm(g.double()).item() for k, g in grads.items()},
+                 card=card)
+            tscene = shard.merge_params(tscene, params)
+        wall = time.perf_counter() - t0
+        counts = mk.launch_counts()
+        check(counts["winners_launches"] > 0, f"{name}: the train path launched no winners")
+        check(counts["launches"] - counts["winners_launches"] > 0,
+              f"{name}: the train path launched no radiance kernel")
+        emit(phase, scene=name, width=width, height=height, spp=TRAIN_SPP, depth=MAIN_DEPTH,
+             steps=steps, rays_per_chunk=TRAIN_CHUNK, wall_s=wall, **counts,
+             peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+        emit(f"profile_{phase}", **profile_fn(lambda: shard.sharded_train_step(
+            tscene, tcam, target, width, height, TRAIN_SPP, MAIN_DEPTH, tbg, 42, **train_kw),
+            what="one train step"), card=card)
+        torch.cuda.empty_cache()
+        return counts
+
+    train_counts = train("final_scene", MAIN_W, MAIN_H, TRAIN_STEPS, "train", False)
+    golden_counts = train("golden_scene", SCENE_DEFAULTS["golden_scene"]["width"],
+                          SCENE_DEFAULTS["golden_scene"]["height"], GOLDEN_STEPS,
+                          "train_golden", True)
+    check(golden_counts["sky_launches"] == golden_counts["launches"],
+          "golden_scene: a train launch was not the sky variant")
+    variant_launches["sky"] += golden_counts["sky_launches"]
 
     emit("total", seconds=time.perf_counter() - t_start)
-    # ---- kernels line: per launch, averaged over one sample batch's segments ----
-    n_seg = len(segs)
-    ops_ms = sum(s["ops_ms"] for s in segs)
-    bytes_ms = sum(s["bytes_ms"] for s in segs)
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
-        "source": "rtweekend_tpu_torch/csrc/megakernel.cu",
-        "replaces": "rtweekend_tpu/ops/pallas/megakernel.py:1050",
-        "launches": launches,
-        "max_abs_err": max(s["max_abs"] for s in segs),
-        "ms": sum(s["kernel_ms"] for s in segs) / n_seg,
-        "plain_ms": sum(s["plain_ms"] for s in segs) / n_seg,
-        "bound_ms": sum(s["bound_ms"] for s in segs) / n_seg,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }, {
+
+    # ---- kernels line: per launch, averaged over the segments of one sample
+    # batch of each scene the variant's main path was checked on ----
+    def entry(name, launches, seg_list):
+        ops_ms = sum(s["ops_ms"] for s in seg_list)
+        bytes_ms = sum(s["bytes_ms"] for s in seg_list)
+        k = len(seg_list)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "rtweekend_tpu_torch/csrc/megakernel.cu",
+            "replaces": "rtweekend_tpu/ops/pallas/megakernel.py:1050",
+            "launches": launches,
+            "max_abs_err": max(s["max_abs"] for s in seg_list),
+            "ms": sum(s["kernel_ms"] for s in seg_list) / k,
+            "plain_ms": sum(s["plain_ms"] for s in seg_list) / k,
+            "bound_ms": sum(s["bound_ms"] for s in seg_list) / k,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+        }
+
+    winners_entry = {
         "name": "megakernel_winners",
         "route": "cuda",
         "source": "rtweekend_tpu_torch/csrc/megakernel.cu",
         "replaces": "rtweekend_tpu/ops/pallas/megakernel.py:1050",
-        "launches": train_winners,
+        "launches": train_counts["winners_launches"] + golden_counts["winners_launches"],
         "max_abs_err": win_res["max_abs"],
         "ms": win_ms,
         "plain_ms": win_plain_ms,
         "bound_ms": max(win_bnd["ops_ms"], win_bnd["bytes_ms"]),
         "bound_by": "operations" if win_bnd["ops_ms"] >= win_bnd["bytes_ms"] else "bytes",
         "library_ms": None,
-    }]}), flush=True)
+    }
+    print(json.dumps({"kernels": [
+        entry("megakernel", launches, segs),
+        winners_entry,
+        entry("megakernel_noise", variant_launches["noise"], variant_segs["noise"]),
+        entry("megakernel_image", variant_launches["image"], variant_segs["image"]),
+        entry("megakernel_sky", variant_launches["sky"], variant_segs["sky"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

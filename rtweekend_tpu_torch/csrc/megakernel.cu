@@ -6,17 +6,38 @@
 // tracing bounces starting at global bounce b0 — closest hit over all
 // 2S+6R coefficient rows (min t, lowest index on ties), the winner's
 // attributes, PCG4D draws at streams BOUNCE_STREAM0+2(b0+b) and +1,
-// Lambertian / metal / dielectric scatter with the checker texture, and
-// the flat-sky / emission radiance update. It emits the segment's
-// radiance delta [3, m] and the carried state [m, 14]. Rays dead at entry
-// pass through untouched. Variants, as template instantiations:
-// has_motion true (final_scene) and false (cornell_box); want_winners
-// (megakernel.py:892, :902-903) also writes winners [n_bounces, m] int32,
-// the closest-hit primitive of every bounce (spheres 0..S-1, then rects
-// S..S+R-1), -1 on a miss and on every bounce after the ray died — the
-// path decisions the differentiable replay (ops/replay.py) re-traces.
-// Perlin noise, image textures and the gradient sky are not here (the
-// Python wrapper refuses scenes that need them).
+// Lambertian / metal / dielectric scatter with the solid, checker, noise
+// or image texture, and the sky / emission radiance update. It emits the
+// segment's radiance delta [3, m] and the carried state [m, 14]. Rays
+// dead at entry pass through untouched.
+//
+// Variants, as template flags (the C entry point picks the instantiation):
+// - HAS_MOTION: the moving-center lerp (final_scene);
+// - WANT_WINNERS (megakernel.py:892, :902-903) also writes winners
+//   [n_bounces, m] int32, the closest-hit primitive of every bounce
+//   (spheres 0..S-1, then rects S..S+R-1), -1 on a miss and on every
+//   bounce after the ray died — the path decisions the differentiable
+//   replay (ops/replay.py) re-traces;
+// - HAS_NOISE (megakernel.py:459-525, :676-696): 7-octave Perlin
+//   turbulence, gray 0.5*(1 + sin(scale*z + 10*turb)), for a live hit on a
+//   noise texture (two_perlin_spheres, simple_light);
+// - HAS_IMAGE (megakernel.py:348-375, :698-786): sphere UV from the
+//   Cephes atan2/acos polynomials or rect UV from the affine attribute
+//   rows, the nearest texel of the packed RGBA atlas, alpha 0 -> (0,0,1),
+//   for a live hit on an image texture (earth);
+// - HAS_SKY (megakernel.py:428-431, :861-870, :1001): a miss adds the
+//   lerp of two background colors by 0.5*(unit(d).y + 1) (golden_scene).
+// The instantiations, each with and without winners: motion alone
+// (final_scene), none (the flat-sky solid/checker scenes), image alone
+// (earth), and a general one (motion, noise and image compiled in, with
+// and without the sky) for every other scene: the moving-center lerp is
+// exact on a static sphere (its center delta is 0) and the texture
+// branches only run for their own texture type, so the general
+// instantiation computes the same function, bit for bit as measured.
+// On the H100 at the 600x400 scenes' segments
+// (rtweekend_tpu_torch/tools/instantiations.py) a noise-only or sky-only
+// instantiation was no faster than the general one, so neither is built;
+// image alone (72 registers against 80) was ~5% faster on earth.
 //
 // Design, simple and correct before fast: one thread per ray, the bounce
 // loop inside the thread, a strict `t < best` scan over the primitives
@@ -30,15 +51,24 @@
 // bounce. The winners write is one int per ray-bounce, coalesced across
 // the warp (row b of winners is contiguous in the ray index); with
 // WANT_WINNERS false it compiles away, so the render path's code is
-// unchanged.
+// unchanged. The Perlin tables (3 x 256 permutation entries and 3 x 256
+// gradient components, 6 KB) and the texel atlas are read through __ldg:
+// the TPU kernel's half-row lookups (_lut256) and chunk walk over the
+// atlas only work around the TPU's 128-lane gather. A texel is fetched
+// only for a live hit on an image texture: for any other ray the texel
+// index is meaningless and may lie outside the atlas.
 //
 // Numerics: fp32 only, no tensor cores, no fast-math. The sphere c_coef
 // row cancels |beta|^2 ~ 1e6 (r = 1000 ground) to ~1e3, so reduced
 // precision flips closest hits; logf/log1pf/sinf/cosf/expf/sqrtf are the
 // accurate versions, division and sqrt IEEE-rounded, rsqrt written as
 // 1/sqrtf, and the cube root of the fuzz radius is expf(logf(max(u,
-// 1e-30))/3) as in the TPU kernel (megakernel.py:665). PCG4D runs natively
-// in uint32 and is bit-equal to rtweekend_tpu/utils/rng.py.
+// 1e-30))/3) as in the TPU kernel (megakernel.py:665). The noise texture's
+// sin argument reaches ~4,000 on simple_light's r = 1000 ground, where
+// __sinf would be far off: accurate sinf. atan2/acos are the TPU kernel's
+// Cephes polynomials, not atan2f (~1e-7 rad apart, enough to move a
+// nearest texel at a boundary). PCG4D runs natively in uint32 and is
+// bit-equal to rtweekend_tpu/utils/rng.py.
 //
 // Bound on this card: per live ray-bounce, (2S+6R)*17 fp32 multiply-adds
 // for the coefficient dots (final_scene: 1024*17 = 17,408 FMA) plus a
@@ -46,8 +76,20 @@
 // 67 TFLOP/s fp32 outside the tensor cores; the state traffic (2 x 56
 // bytes per ray per launch) is far below the memory bound; so is the
 // winners output (4 bytes per ray-bounce: 162 MB for 811,008 rays at depth
-// 50, ~0.05 ms at 3.35 TB/s). This first version makes no attempt to
-// approach the bound.
+// 50, ~0.05 ms at 3.35 TB/s). Texture work, counted from the code below
+// as arithmetic operations per live hit (chip_smoke.py adds it to the
+// bound): noise 1,338 = 7 octaves x 186 (8 corners x 20 [3 add + 3 and
+// + 2 xor on the lattice indices, 3 sub for the offsets, 2 mul for the
+// weight, 5 for the dot, 2 to accumulate] + 3 floor + 3 sub + 12 for the
+// smoothstep + 3 for 1 - s + 2 to weight the octave + 3 to double the
+// point) + 1 abs + ~30 for sinf's range reduction and polynomial + 5 for
+// the gray value; image 118 = 2 x ~30 for the two Cephes atan2 (abs,
+// compare, select, max, divide, the second reduction, a 4-term
+// polynomial, 3 quadrant fix-ups) + 4 for acos's sqrt(1 - c^2) + 4 pole
+// guard + 2 clamp + 16 for the two rect rows + 4 for u, v + 5 clamp and
+// flip + 6 for the texel index + 10 to unpack + 7 select; sky 15 per live
+// miss (3 for t, 4 for each of the three lerps). This first version makes no
+// attempt to approach the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,11 +106,17 @@ enum { S_OX, S_OY, S_OZ, S_DX, S_DY, S_DZ, S_TM, S_PID, S_SID,
 enum { AF_C0X, AF_C0Y, AF_C0Z, AF_DCX, AF_DCY, AF_DCZ, AF_T0, AF_IDT,
        AF_INVR, AF_NX, AF_NY, AF_NZ, AF_FUZZ, AF_IOR,
        AF_CR, AF_CG, AF_CB, AF_C2R, AF_C2G, AF_C2B };
-enum { AI_MTYPE, AI_TTYPE };
+enum { AF_TSCALE = 20, AF_UWX, AF_UWY, AF_UWZ, AF_UC,
+       AF_VWX, AF_VWY, AF_VWZ, AF_VC };
+enum { AI_MTYPE, AI_TTYPE, AI_IMGW, AI_IMGH, AI_IMGBASE };
 constexpr int MAT_METAL = 1;
 constexpr int MAT_DIELECTRIC = 2;
 constexpr int MAT_LIGHT = 3;
 constexpr int TEX_CHECKER = 1;
+constexpr int TEX_NOISE = 2;
+constexpr int TEX_IMAGE = 3;
+// variant flags of the C entry point
+constexpr int V_MOTION = 1, V_IMAGE = 4, V_SKY = 8;  // 2: noise
 constexpr float BIG = 1e30f;
 constexpr float NEAR_ZERO = 1e-8f;
 constexpr uint32_t BOUNCE_STREAM0 = 0x10000u;
@@ -82,13 +130,17 @@ struct Params {
   int attr_stride;
   int s_pad;
   int r_pad;
+  const int* perm;       // [8, 128]: px[0:256], py[256:512], pz[512:768]
+  const float* grad;     // [8, 128]: gx[0:256], gy[256:512], gz[512:768]
+  const int* images;     // packed RGBA texels, r | g<<8 | b<<16 | a<<24
   const float* state_in; // [m, SW]
   float* state_out;      // [m, SW]
   float* rad;            // [3, m]
   int* winners;          // [n_bounces, m] when WANT_WINNERS, else null
   int m;
   uint32_t seed;
-  float bg_r, bg_g, bg_b;
+  float bg_r, bg_g, bg_b;     // flat sky; the gradient sky's bottom
+  float bg1_r, bg1_g, bg1_b;  // the gradient sky's top
   int b0;
   int n_bounces;
   float t_min;
@@ -123,7 +175,130 @@ __device__ __forceinline__ float dot_row(const float4* row, const float* f) {
   return s;
 }
 
-template <bool HAS_MOTION, bool WANT_WINNERS>
+// Perlin noise at q (utils/perlin.noise, reference perlin.zig:47-78) in the
+// TPU kernel's operation order (megakernel.py:482-516): Hermite-smoothed
+// trilinear interpolation of gradient dots over the 8 lattice corners.
+// floor, then int, then & 255: two's complement wraps negative lattice
+// coordinates as the TPU kernel does. The corner weight selects s or
+// 1 - s (di*s + (1-di)*(1-s) in the TPU kernel, the same value).
+__device__ __forceinline__ float perlin_noise(const int* __restrict__ perm,
+                                              const float* __restrict__ grad,
+                                              float qx, float qy, float qz) {
+  const float fx = floorf(qx), fy = floorf(qy), fz = floorf(qz);
+  const float ux = qx - fx, uy = qy - fy, uz = qz - fz;
+  const int ix0 = (int)fx, iy0 = (int)fy, iz0 = (int)fz;
+  const float sx = ux * ux * (3.0f - 2.0f * ux);
+  const float sy = uy * uy * (3.0f - 2.0f * uy);
+  const float sz = uz * uz * (3.0f - 2.0f * uz);
+  float accum = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const int ix = (ix0 + di) & 255;
+        const int iy = (iy0 + dj) & 255;
+        const int iz = (iz0 + dk) & 255;
+        const int gi = __ldg(perm + ix) ^ __ldg(perm + 256 + iy) ^ __ldg(perm + 512 + iz);
+        const float cx = __ldg(grad + gi);
+        const float cy = __ldg(grad + 256 + gi);
+        const float cz = __ldg(grad + 512 + gi);
+        const float wx = ux - (float)di;
+        const float wy = uy - (float)dj;
+        const float wz = uz - (float)dk;
+        const float w = (di ? sx : 1.0f - sx) * (dj ? sy : 1.0f - sy)
+                      * (dk ? sz : 1.0f - sz);
+        accum = accum + w * (cx * wx + cy * wy + cz * wz);
+      }
+    }
+  }
+  return accum;
+}
+
+// 7-octave turbulence |sum_k 2^-k noise(2^k q)| (perlin.zig:80-91,
+// megakernel.py:518-525).
+__device__ __noinline__ float perlin_turb(const int* __restrict__ perm,
+                                          const float* __restrict__ grad,
+                                          float qx, float qy, float qz) {
+  float accum = 0.0f;
+  float weight = 1.0f;
+#pragma unroll 1
+  for (int k = 0; k < 7; ++k) {
+    accum = accum + weight * perlin_noise(perm, grad, qx, qy, qz);
+    weight *= 0.5f;
+    qx = qx * 2.0f; qy = qy * 2.0f; qz = qz * 2.0f;
+  }
+  return fabsf(accum);
+}
+
+// atan2 as the TPU kernel computes it (megakernel.py:348-370): octant
+// reduction to t in [0, 1], a second reduction above tan(pi/8), and the
+// Cephes atanf polynomial. Constants are the TPU kernel's double literals
+// rounded to float.
+__device__ __forceinline__ float atan2_cephes(float y, float x) {
+  const float pi = (float)3.141592653589793;
+  const float ax = fabsf(x), ay = fabsf(y);
+  const bool swap = ay > ax;
+  const float num = swap ? ax : ay;
+  const float den = fmaxf(swap ? ay : ax, (float)1e-30);
+  float t = num / den;
+  const bool med = t > (float)0.4142135623730950;
+  t = med ? (t - 1.0f) / (t + 1.0f) : t;
+  const float z = t * t;
+  float q = (((float)8.05374449538e-2 * z - (float)1.38776856032e-1) * z
+             + (float)1.99777106478e-1) * z - (float)3.33329491539e-1;
+  q = q * z * t + t;
+  q = med ? (float)(0.25 * 3.141592653589793) + q : q;
+  q = swap ? (float)(0.5 * 3.141592653589793) - q : q;
+  q = x < 0.0f ? pi - q : q;
+  return y < 0.0f ? -q : q;
+}
+
+// acos(c) = atan2(sqrt(1 - c^2), c); the caller clamps |c| < 1
+// (megakernel.py:372-375). 1 - c^2 as one fused multiply-add: near the
+// poles it cancels, and the plain version rounds it once too.
+__device__ __forceinline__ float acos_cephes(float c) {
+  return atan2_cephes(sqrtf(fmaxf(fmaf(-c, c, 1.0f), 0.0f)), c);
+}
+
+// The image texture's color at a live hit (megakernel.py:700-779):
+// sphere UV from the pre-flip outward normal with the pole guard, rect
+// UV from the folded affine rows; the nearest texel (texture.zig:120-137
+// with the j clamp), alpha 0 -> ocean blue (texture.zig:138-140).
+__device__ __noinline__ float3 image_rgb(const float* __restrict__ af,
+                                         const int* __restrict__ ai, size_t ast,
+                                         size_t j, bool is_s,
+                                         const int* __restrict__ images,
+                                         float onx, float ony, float onz,
+                                         float px, float py, float pz) {
+  const float pi = (float)3.141592653589793;
+  const bool at_pole = (fabsf(onz) + fabsf(onx)) < (float)1e-12;
+  const float phi = atan2_cephes(-(at_pole ? 0.0f : onz), at_pole ? 1.0f : onx) + pi;
+  const float theta = acos_cephes(
+      fminf(fmaxf(-ony, (float)(-1.0 + 1e-7)), (float)(1.0 - 1e-7)));
+  const float u_rect = px * __ldg(af + AF_UWX * ast + j) + py * __ldg(af + AF_UWY * ast + j)
+                     + pz * __ldg(af + AF_UWZ * ast + j) + __ldg(af + AF_UC * ast + j);
+  const float v_rect = px * __ldg(af + AF_VWX * ast + j) + py * __ldg(af + AF_VWY * ast + j)
+                     + pz * __ldg(af + AF_VWZ * ast + j) + __ldg(af + AF_VC * ast + j);
+  const float uu = is_s ? phi * (float)(0.5 / 3.141592653589793) : u_rect;
+  const float vv = is_s ? theta * (float)(1.0 / 3.141592653589793) : v_rect;
+  const int iw = __ldg(ai + AI_IMGW * ast + j);
+  const int ih = __ldg(ai + AI_IMGH * ast + j);
+  const int ibase = __ldg(ai + AI_IMGBASE * ast + j);
+  const float uc = fminf(fmaxf(uu, 0.0f), 1.0f);
+  const float vc = 1.0f - fminf(fmaxf(vv, 0.0f), 1.0f);
+  const int ti = min((int)(uc * (float)iw), iw - 1);
+  const int tj = min((int)(vc * (float)ih), ih - 1);
+  const int packed = __ldg(images + ((size_t)ibase + (size_t)tj * iw + ti));
+  const float inv = (float)(1.0 / 255.0);
+  if (((packed >> 24) & 255) == 0) return make_float3(0.0f, 0.0f, 1.0f);
+  return make_float3((float)(packed & 255) * inv, (float)((packed >> 8) & 255) * inv,
+                     (float)((packed >> 16) & 255) * inv);
+}
+
+template <bool HAS_MOTION, bool WANT_WINNERS, bool HAS_NOISE, bool HAS_IMAGE,
+          bool HAS_SKY>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
   extern __shared__ float4 s_coef[];
   const int n_f4 = p.n_rows * ROW_F4;
@@ -258,9 +433,22 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
     // ---- texture (solid / checker) ----
     const float sines = sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
     const bool use2 = (ttype == TEX_CHECKER) && (sines < 0.f);
-    const float tex_r = __ldg(af + (use2 ? AF_C2R : AF_CR) * ast + j);
-    const float tex_g = __ldg(af + (use2 ? AF_C2G : AF_CG) * ast + j);
-    const float tex_b = __ldg(af + (use2 ? AF_C2B : AF_CB) * ast + j);
+    float tex_r = __ldg(af + (use2 ? AF_C2R : AF_CR) * ast + j);
+    float tex_g = __ldg(af + (use2 ? AF_C2G : AF_CG) * ast + j);
+    float tex_b = __ldg(af + (use2 ? AF_C2B : AF_CB) * ast + j);
+    // noise and image: only for a live hit on their own texture type (the
+    // ray is alive here); the TPU kernel's per-tile lax.cond skip becomes
+    // this per-ray branch (megakernel.py:676-786)
+    if (HAS_NOISE && hit && ttype == TEX_NOISE) {
+      const float turb = perlin_turb(p.perm, p.grad, px, py, pz);
+      const float gray =
+          0.5f * (1.0f + sinf(__ldg(af + AF_TSCALE * ast + j) * pz + 10.0f * turb));
+      tex_r = gray; tex_g = gray; tex_b = gray;
+    }
+    if (HAS_IMAGE && hit && ttype == TEX_IMAGE) {
+      const float3 c = image_rgb(af, ai, ast, j, is_s, p.images, onx, ony, onz, px, py, pz);
+      tex_r = c.x; tex_g = c.y; tex_b = c.z;
+    }
 
     // ---- diffuse (material.zig:41-53) ----
     float ddx = nx + uvx, ddy = ny + uvy, ddz = nz + uvz;
@@ -316,9 +504,18 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
 
     // ---- accumulate (main.zig:110-121); the ray is alive here ----
     const bool em = hit && is_light;
-    rr = rr + (em ? tr * tex_r : 0.f) + (hit ? 0.f : tr * p.bg_r);
-    rg = rg + (em ? tg * tex_g : 0.f) + (hit ? 0.f : tg * p.bg_g);
-    rb = rb + (em ? tb * tex_b : 0.f) + (hit ? 0.f : tb * p.bg_b);
+    float sky_r = p.bg_r, sky_g = p.bg_g, sky_b = p.bg_b;
+    if (HAS_SKY) {
+      // book-1 gradient sky (megakernel.py:861-870): inv_dn is the
+      // reciprocal length of the CURRENT direction, after its guard
+      const float tsky = 0.5f * (dy * inv_dn + 1.0f);
+      sky_r = (1.0f - tsky) * p.bg_r + tsky * p.bg1_r;
+      sky_g = (1.0f - tsky) * p.bg_g + tsky * p.bg1_g;
+      sky_b = (1.0f - tsky) * p.bg_b + tsky * p.bg1_b;
+    }
+    rr = rr + (em ? tr * tex_r : 0.f) + (hit ? 0.f : tr * sky_r);
+    rg = rg + (em ? tg * tex_g : 0.f) + (hit ? 0.f : tg * sky_g);
+    rb = rb + (em ? tb * tex_b : 0.f) + (hit ? 0.f : tb * sky_b);
     alive = hit && sc_alive;
     if (alive) {
       tr = tr * at_r; tg = tg * at_g; tb = tb * at_b;
@@ -345,31 +542,50 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
   p.rad[2 * (size_t)p.m + i] = rb;
 }
 
-template <bool HAS_MOTION, bool WANT_WINNERS>
+template <bool HAS_MOTION, bool WANT_WINNERS, bool HAS_NOISE, bool HAS_IMAGE,
+          bool HAS_SKY>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  auto kernel = bounce_kernel<HAS_MOTION, WANT_WINNERS, HAS_NOISE, HAS_IMAGE, HAS_SKY>;
   const size_t smem = (size_t)p.n_rows * ROW_F4 * sizeof(float4);
   cudaError_t err = cudaFuncSetAttribute(
-      bounce_kernel<HAS_MOTION, WANT_WINNERS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.m + BLOCK - 1) / BLOCK));
-  bounce_kernel<HAS_MOTION, WANT_WINNERS><<<grid, BLOCK, smem, stream>>>(p);
+  kernel<<<grid, BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The instantiation for a variant mask: motion alone, none and image
+// alone, and the general one for any other set (see the note at the top).
+template <bool W>
+cudaError_t dispatch(const Params& p, int variant, cudaStream_t s) {
+  switch (variant) {
+    case V_MOTION: return launch<true, W, false, false, false>(p, s);
+    case 0:        return launch<false, W, false, false, false>(p, s);
+    case V_IMAGE:  return launch<false, W, false, true, false>(p, s);
+    default:
+      return (variant & V_SKY) ? launch<true, W, true, true, true>(p, s)
+                               : launch<true, W, true, true, false>(p, s);
+  }
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/cuda/megakernel.py). Launches
 // on `stream`, allocates nothing, does not synchronise; returns the
-// cudaError_t of the launch (0 on success). `winners` is null for the
-// radiance-only variant, else an [n_bounces, m] int32 buffer the kernel
-// fills completely.
+// cudaError_t of the launch (0 on success). `variant` is a mask of
+// 1 motion, 2 noise, 4 image, 8 gradient sky. `bg` holds six floats: the
+// flat sky (or the gradient sky's bottom), then the gradient sky's top.
+// `winners` is null for the radiance-only variant, else an [n_bounces, m]
+// int32 buffer the kernel fills completely.
 extern "C" int rtw_bounce_segment(
     const void* coef, int n_rows, int coef_stride,
     const void* attr_f, const void* attr_i, int attr_stride,
-    int s_pad, int r_pad, int has_motion,
+    int s_pad, int r_pad, int variant,
+    const void* perm, const void* grad, const void* images,
     const void* state_in, void* state_out, void* rad, void* winners, int m,
     unsigned int seed, float bg_r, float bg_g, float bg_b,
+    float bg1_r, float bg1_g, float bg1_b,
     int b0, int n_bounces, float t_min, void* stream) {
   Params p;
   p.coef = static_cast<const float*>(coef);
@@ -380,6 +596,9 @@ extern "C" int rtw_bounce_segment(
   p.attr_stride = attr_stride;
   p.s_pad = s_pad;
   p.r_pad = r_pad;
+  p.perm = static_cast<const int*>(perm);
+  p.grad = static_cast<const float*>(grad);
+  p.images = static_cast<const int*>(images);
   p.state_in = static_cast<const float*>(state_in);
   p.state_out = static_cast<float*>(state_out);
   p.rad = static_cast<float*>(rad);
@@ -389,16 +608,15 @@ extern "C" int rtw_bounce_segment(
   p.bg_r = bg_r;
   p.bg_g = bg_g;
   p.bg_b = bg_b;
+  p.bg1_r = bg1_r;
+  p.bg1_g = bg1_g;
+  p.bg1_b = bg1_b;
   p.b0 = b0;
   p.n_bounces = n_bounces;
   p.t_min = t_min;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (winners != nullptr) {
-    err = has_motion ? launch<true, true>(p, s) : launch<false, true>(p, s);
-  } else {
-    err = has_motion ? launch<true, false>(p, s) : launch<false, false>(p, s);
-  }
+  const cudaError_t err = winners != nullptr ? dispatch<true>(p, variant, s)
+                                             : dispatch<false>(p, variant, s);
   return (int)err;
 }
 

@@ -25,9 +25,13 @@ from rtweekend_tpu_torch.models.scene import (
     Solid,
 )
 
-# Path of the earth texture (the reference's assets/sekaichizu.png);
-# without it, earth uses the deterministic procedural map below.
-EARTH_TEXTURE_PATH = os.environ.get("RTW_EARTH_TEXTURE", "")
+# Path of the earth texture: RTW_EARTH_TEXTURE, else the reference
+# checkout's assets/sekaichizu.png, where rtweekend_tpu.models.builders
+# looks for it too, so both packages build the same earth; without the
+# file, earth uses the deterministic procedural map below.
+EARTH_TEXTURE_PATH = os.environ.get(
+    "RTW_EARTH_TEXTURE", "/root/reference/assets/sekaichizu.png"
+)
 
 
 def two_spheres(builder: SceneBuilder, rng: np.random.Generator):
@@ -132,7 +136,7 @@ def _procedural_earth_rgba(size=(256, 512)) -> np.ndarray:
 
 
 def _load_earth_texture() -> np.ndarray:
-    if EARTH_TEXTURE_PATH and os.path.exists(EARTH_TEXTURE_PATH):
+    if os.path.exists(EARTH_TEXTURE_PATH):
         from rtweekend_tpu_torch.utils.image import read_image_rgba
 
         return read_image_rgba(EARTH_TEXTURE_PATH)

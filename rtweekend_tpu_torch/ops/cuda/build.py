@@ -80,9 +80,11 @@ def load():
     lib.rtw_bounce_segment.argtypes = [
         p, i, i,        # coef, n_rows, coef_stride
         p, p, i,        # attr_f, attr_i, attr_stride
-        i, i, i,        # s_pad, r_pad, has_motion
+        i, i, i,        # s_pad, r_pad, variant mask
+        p, p, p,        # perm, grad, images
         p, p, p, p, i,  # state_in, state_out, rad, winners (or None), m
-        u, f, f, f,     # seed, background rgb
+        u, f, f, f,     # seed, background rgb (the gradient sky's bottom)
+        f, f, f,        # the gradient sky's top
         i, i, f,        # b0, n_bounces, t_min
         p,              # stream
     ]

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from rtweekend_tpu_torch.models.scene import (
@@ -35,6 +36,8 @@ from rtweekend_tpu_torch.models.scene import (
     MAT_LIGHT,
     MAT_METAL,
     TEX_CHECKER,
+    TEX_IMAGE,
+    TEX_NOISE,
     Scene,
 )
 from rtweekend_tpu_torch.ops import coeffs
@@ -84,8 +87,10 @@ class Tables:
     - attr_f [29, C*128] f32 / attr_i [5, C*128] i32: winner attributes
       in primitive order (spheres then rects), materials and textures
       denormalized onto primitives;
-    - perm/grad [8, 128]: Perlin tables as half-rows; images [C', 128]
-      the packed RGBA atlas (both for the variants still to port).
+    - perm/grad [8, 128]: the Perlin tables as half-rows; flattened,
+      [0:256] is the x table, [256:512] y, [512:768] z;
+    - images [C', 128] i32: the packed RGBA texel atlas (r | g<<8 |
+      b<<16 | a<<24), read at image_base + row * width + column.
     """
 
     coef: torch.Tensor
@@ -176,22 +181,17 @@ def pack_scene(scene: Scene) -> Tables:
     )
 
 
-def _check_variant(tables: Tables, background):
-    """Refuse the kernel variants this port does not have yet, on every
-    device: a scene that needs one must fail, not render wrong."""
-    missing = []
-    if tables.has_noise:
-        missing.append("has_noise (Perlin-noise textures)")
-    if tables.has_image:
-        missing.append("has_image (image textures)")
-    if len(background) == 2:
-        missing.append("has_sky (gradient sky background)")
-    if missing:
-        raise NotImplementedError(
-            "bounce kernel variant not ported yet: " + ", ".join(missing)
-        )
-    if len(background) != 3:
-        raise ValueError(f"background must be 3 floats, got {background!r}")
+def sky_floats(background):
+    """(six floats, has_sky) for the kernel from a host background: 3
+    floats are the flat sky (padded with zeros), a (bottom, top) pair
+    [2, 3] selects the gradient-sky variant (megakernel.py:1001)."""
+    bg = np.asarray(background, dtype=np.float32)
+    if bg.shape == (3,):
+        return (*bg.tolist(), 0.0, 0.0, 0.0), False
+    if bg.shape == (2, 3):
+        return tuple(bg.reshape(-1).tolist()), True
+    raise ValueError(
+        f"background must be 3 floats or a (bottom, top) pair, got {background!r}")
 
 
 def init_state(origins, dirs, times, pixel_ids, sample_ids) -> torch.Tensor:
@@ -229,6 +229,109 @@ def _march(feats, coef_t):
     return out
 
 
+def _perlin_noise(perm, grad, qx, qy, qz):
+    """Perlin noise at points (qx, qy, qz) in the TPU kernel's operation
+    order (megakernel.py:482-516): the gradient dot as cx*wx + cy*wy +
+    cz*wz, the corner weight selecting s or 1 - s. perm/grad are the flat
+    packed tables (x at [0:256], y at [256:512], z at [512:768]).
+    utils/perlin.noise, which the replay differentiates, sums the dot
+    with torch.sum and stays separate."""
+    fx, fy, fz = torch.floor(qx), torch.floor(qy), torch.floor(qz)
+    ux, uy, uz = qx - fx, qy - fy, qz - fz
+    ix0, iy0, iz0 = fx.to(torch.int32), fy.to(torch.int32), fz.to(torch.int32)
+    sx = ux * ux * (3.0 - 2.0 * ux)
+    sy = uy * uy * (3.0 - 2.0 * uy)
+    sz = uz * uz * (3.0 - 2.0 * uz)
+    accum = torch.zeros_like(qx)
+    for di in range(2):
+        for dj in range(2):
+            for dk in range(2):
+                ix = ((ix0 + di) & 255).long()
+                iy = ((iy0 + dj) & 255).long()
+                iz = ((iz0 + dk) & 255).long()
+                gi = (perm[ix] ^ perm[256 + iy] ^ perm[512 + iz]).long()
+                cx, cy, cz = grad[gi], grad[256 + gi], grad[512 + gi]
+                wx, wy, wz = ux - di, uy - dj, uz - dk
+                w = ((sx if di else 1.0 - sx) * (sy if dj else 1.0 - sy)
+                     * (sz if dk else 1.0 - sz))
+                accum = accum + w * (cx * wx + cy * wy + cz * wz)
+    return accum
+
+
+def perlin_turb(perm, grad, qx, qy, qz, depth: int = 7):
+    """|sum over `depth` octaves of 2^-k noise(2^k q)| in the TPU
+    kernel's order (megakernel.py:518-525)."""
+    accum = torch.zeros_like(qx)
+    weight = 1.0
+    for _ in range(depth):
+        accum = accum + weight * _perlin_noise(perm, grad, qx, qy, qz)
+        weight *= 0.5
+        qx, qy, qz = qx * 2.0, qy * 2.0, qz * 2.0
+    return torch.abs(accum)
+
+
+def _atan2(y, x):
+    """atan2 as the TPU kernel computes it (megakernel.py:348-370): octant
+    reduction to t in [0, 1], a second reduction above tan(pi/8) and the
+    Cephes atanf polynomial. torch.atan2 differs by ~1e-7 rad, enough to
+    move a nearest texel at its boundary."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    swap = ay > ax
+    num = torch.where(swap, ax, ay)
+    den = torch.clamp(torch.where(swap, ay, ax), min=1e-30)
+    t = num / den
+    med = t > 0.4142135623730950
+    t = torch.where(med, (t - 1.0) / (t + 1.0), t)
+    z = t * t
+    p = (
+        ((8.05374449538e-2 * z - 1.38776856032e-1) * z + 1.99777106478e-1) * z
+        - 3.33329491539e-1
+    ) * z * t + t
+    p = torch.where(med, 0.25 * math.pi + p, p)
+    p = torch.where(swap, 0.5 * math.pi - p, p)
+    p = torch.where(x < 0.0, math.pi - p, p)
+    return torch.where(y < 0.0, -p, p)
+
+
+def _acos(c):
+    """acos via _atan2(sqrt(1 - c^2), c); the caller clamps |c| < 1
+    (megakernel.py:372-375). 1 - c^2 is rounded once, as the fused
+    multiply-add the CUDA kernel uses (XLA fuses it too): near the poles
+    the two roundings of an unfused form move the small angle by tens of
+    ulps. The float64 product and difference are exact for |c| >= 1/8;
+    below, a double-rounding tie is the only way to differ."""
+    c64 = c.to(torch.float64)
+    return _atan2(torch.sqrt(torch.clamp((1.0 - c64 * c64).to(c.dtype), min=0.0)), c)
+
+
+def _image_rgb(tables: Tables, j, is_s, onx, ony, onz, px, py, pz):
+    """The image texture's color at hits on primitives j
+    (megakernel.py:700-779): sphere UV from the pre-flip outward normal
+    with the pole guard, rect UV from the affine attribute rows, the
+    nearest texel, alpha 0 -> (0, 0, 1). Call it only for live hits on
+    an image texture: elsewhere the texel index is meaningless."""
+    af, ai = tables.attr_f, tables.attr_i
+    at_pole = (torch.abs(onz) + torch.abs(onx)) < 1e-12
+    phi = _atan2(-torch.where(at_pole, 0.0, onz), torch.where(at_pole, 1.0, onx)) + math.pi
+    theta = _acos(torch.clamp(-ony, -1.0 + 1e-7, 1.0 - 1e-7))
+    u_rect = px * af[_AF_UWX, j] + py * af[_AF_UWY, j] + pz * af[_AF_UWZ, j] + af[_AF_UC, j]
+    v_rect = px * af[_AF_VWX, j] + py * af[_AF_VWY, j] + pz * af[_AF_VWZ, j] + af[_AF_VC, j]
+    uu = torch.where(is_s, phi * (0.5 / math.pi), u_rect)
+    vv = torch.where(is_s, theta * (1.0 / math.pi), v_rect)
+    iw, ih, ibase = ai[_AI_IMGW, j], ai[_AI_IMGH, j], ai[_AI_IMGBASE, j]
+    uc = torch.clamp(uu, 0.0, 1.0)
+    vc = 1.0 - torch.clamp(vv, 0.0, 1.0)
+    ti = torch.minimum((uc * iw.to(torch.float32)).to(torch.int32), iw - 1)
+    tj = torch.minimum((vc * ih.to(torch.float32)).to(torch.int32), ih - 1)
+    packed = tables.images.reshape(-1)[(ibase + tj * iw + ti).long()]
+    inv = 1.0 / 255.0
+    zero_a = ((packed >> 24) & 255) == 0
+    pr = torch.where(zero_a, 0.0, (packed & 255).to(torch.float32) * inv)
+    pg = torch.where(zero_a, 0.0, ((packed >> 8) & 255).to(torch.float32) * inv)
+    pb = torch.where(zero_a, 1.0, ((packed >> 16) & 255).to(torch.float32) * inv)
+    return pr, pg, pb
+
+
 def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
                         n_bounces: int, t_min: float = T_MIN, *,
                         want_winners: bool = False):
@@ -239,13 +342,15 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
     through untouched and add nothing. want_winners adds winners
     [n_bounces, m] int32: the closest-hit primitive index of each bounce
     (spheres first, then s_pad + rect), -1 on a miss and wherever the ray
-    is dead (the TPU kernel leaves those entries unspecified)."""
-    _check_variant(tables, background)
+    is dead (the TPU kernel leaves those entries unspecified).
+    background: 3 floats (flat sky) or a (bottom, top) pair (gradient
+    sky)."""
+    (bg_r, bg_g, bg_b, bg_r1, bg_g1, bg_b1), has_sky = sky_floats(background)
     s, r = tables.s_pad, tables.r_pad
     n_prims = s + r
     coef_t = tables.coef[:, :NF].t()
     af, ai = tables.attr_f, tables.attr_i
-    bg_r, bg_g, bg_b = (float(x) for x in background)
+    perm, grad = tables.perm.reshape(-1), tables.grad.reshape(-1)
     dev = state.device
 
     ox, oy, oz = state[:, S_OX], state[:, S_OY], state[:, S_OZ]
@@ -340,6 +445,19 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
         tex_r = torch.where(use2, c2r, cr)
         tex_g = torch.where(use2, c2g, cg)
         tex_b = torch.where(use2, c2b, cb)
+        # noise and image: computed for live hits on their own texture
+        # only (megakernel.py:676-786); other rays keep the color above
+        if tables.has_noise:
+            need = alive & hit & (ttype == TEX_NOISE)
+            turb = perlin_turb(perm, grad, px[need], py[need], pz[need])
+            gray = 0.5 * (1.0 + torch.sin(gf(_AF_TSCALE)[need] * pz[need] + 10.0 * turb))
+            tex_r, tex_g, tex_b = (t.masked_scatter(need, gray) for t in (tex_r, tex_g, tex_b))
+        if tables.has_image:
+            need = alive & hit & (ttype == TEX_IMAGE)
+            rgb = _image_rgb(tables, j[need], is_s[need], onx[need], ony[need], onz[need],
+                             px[need], py[need], pz[need])
+            tex_r, tex_g, tex_b = (t.masked_scatter(need, c)
+                                   for t, c in zip((tex_r, tex_g, tex_b), rgb))
 
         # ---- diffuse (material.zig:41-53) ----
         ddx, ddy, ddz = nx + uvx, ny + uvy, nz + uvz
@@ -399,9 +517,18 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
         hit_live = alive & hit
         miss_live = alive & ~hit
         em = hit_live & is_light
-        rr = rr + torch.where(em, tr * tex_r, 0.0) + torch.where(miss_live, tr * bg_r, 0.0)
-        rg = rg + torch.where(em, tg * tex_g, 0.0) + torch.where(miss_live, tg * bg_g, 0.0)
-        rb = rb + torch.where(em, tb * tex_b, 0.0) + torch.where(miss_live, tb * bg_b, 0.0)
+        if has_sky:
+            # book-1 gradient sky (megakernel.py:861-870); inv_dn is the
+            # reciprocal length of the CURRENT direction
+            tsky = 0.5 * (dy * inv_dn + 1.0)
+            sky_r = (1.0 - tsky) * bg_r + tsky * bg_r1
+            sky_g = (1.0 - tsky) * bg_g + tsky * bg_g1
+            sky_b = (1.0 - tsky) * bg_b + tsky * bg_b1
+        else:
+            sky_r, sky_g, sky_b = bg_r, bg_g, bg_b
+        rr = rr + torch.where(em, tr * tex_r, 0.0) + torch.where(miss_live, tr * sky_r, 0.0)
+        rg = rg + torch.where(em, tg * tex_g, 0.0) + torch.where(miss_live, tg * sky_g, 0.0)
+        rb = rb + torch.where(em, tb * tex_b, 0.0) + torch.where(miss_live, tb * sky_b, 0.0)
         new_alive = hit_live & sc_alive
         tr = torch.where(new_alive, tr * at_r, tr)
         tg = torch.where(new_alive, tg * at_g, tg)
@@ -428,17 +555,17 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
 def _check_cuda_args(tables: Tables, state: torch.Tensor):
     dev = state.device
     named = dict(coef=tables.coef, attr_f=tables.attr_f, attr_i=tables.attr_i,
-                 state=state)
+                 perm=tables.perm, grad=tables.grad, images=tables.images, state=state)
     for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, state on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("coef", "attr_f", "state"):
-        if named[name].dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {named[name].dtype}")
-    if tables.attr_i.dtype != torch.int32:
-        raise TypeError(f"attr_i must be int32, got {tables.attr_i.dtype}")
+        want = torch.int32 if name in ("attr_i", "perm", "images") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if tables.perm.shape != (8, 128) or tables.grad.shape != (8, 128):
+        raise ValueError("perm/grad must be [8, 128]")
     n_rows = 2 * tables.s_pad + 6 * tables.r_pad
     if tables.coef.shape != (n_rows, 128):
         raise ValueError(f"coef must be [{n_rows}, 128], got {tuple(tables.coef.shape)}")
@@ -461,14 +588,15 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
                   n_bounces: int, t_min: float = T_MIN, *, want_winners: bool = False):
     """The bounce kernel (csrc/megakernel.cu) for CUDA tensors; the plain
     version for CPU tensors. Same contract as trace_segment_plain.
-    `trace_segment.launches` counts kernel launches of both variants,
-    `trace_segment.winners_launches` those of the want_winners variant."""
+    `trace_segment.launches` counts kernel launches of every variant;
+    `winners_launches`, `noise_launches`, `image_launches` and
+    `sky_launches` those of the launches with that variant compiled in."""
     if state.device.type == "cpu":
         return trace_segment_plain(tables, state, seed, background, b0,
                                    n_bounces, t_min, want_winners=want_winners)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    _check_variant(tables, background)
+    bg, has_sky = sky_floats(background)
     _check_cuda_args(tables, state)
     from rtweekend_tpu_torch.ops.cuda import build
 
@@ -479,28 +607,47 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     # the kernel writes every entry, -1 after a ray's death included
     win = (torch.empty((n_bounces, m), dtype=torch.int32, device=state.device)
            if want_winners else None)
+    variant = (int(tables.has_motion) | 2 * int(tables.has_noise)
+               | 4 * int(tables.has_image) | 8 * int(has_sky))
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.rtw_bounce_segment(
         tables.coef.data_ptr(), tables.coef.shape[0], tables.coef.shape[1],
         tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
-        tables.s_pad, tables.r_pad, int(tables.has_motion),
+        tables.s_pad, tables.r_pad, variant,
+        tables.perm.data_ptr(), tables.grad.data_ptr(), tables.images.data_ptr(),
         state.data_ptr(), out.data_ptr(), rad.data_ptr(),
         win.data_ptr() if want_winners else None, m,
-        int(seed) & 0xFFFFFFFF, *(float(x) for x in background),
-        int(b0), int(n_bounces), float(t_min), stream,
+        int(seed) & 0xFFFFFFFF, *bg, int(b0), int(n_bounces), float(t_min), stream,
     )
     if rc != 0:
         msg = lib.rtw_error_string(rc).decode()
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {rc} ({msg})")
     trace_segment.launches += 1
+    trace_segment.noise_launches += tables.has_noise
+    trace_segment.image_launches += tables.has_image
+    trace_segment.sky_launches += has_sky
     if want_winners:
         trace_segment.winners_launches += 1
         return rad, out, win
     return rad, out
 
 
-trace_segment.launches = 0
-trace_segment.winners_launches = 0
+LAUNCH_COUNTS = ("launches", "winners_launches", "noise_launches", "image_launches",
+                 "sky_launches")
+
+
+def reset_launch_counts():
+    """Set every launch counter of trace_segment to 0."""
+    for name in LAUNCH_COUNTS:
+        setattr(trace_segment, name, 0)
+
+
+def launch_counts():
+    """The launch counters of trace_segment, by name."""
+    return {name: getattr(trace_segment, name) for name in LAUNCH_COUNTS}
+
+
+reset_launch_counts()
 
 KERNELS = ("auto", "cuda", "torch")
 

@@ -21,8 +21,8 @@ from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
 
 
 def host_background(background):
-    """The background as host floats for the kernel (3 floats; a [2, 3]
-    gradient sky is refused by the kernel wrapper)."""
+    """The background as host floats for the kernel: 3 floats (flat sky)
+    or a (bottom, top) pair (the gradient-sky variant)."""
     if isinstance(background, torch.Tensor):
         return background.detach().cpu().tolist()
     return background

@@ -102,7 +102,8 @@ def render(scene: Scene, camera: Camera, width: int, height: int,
     """Full render on the scene's device; returns the radiance SUM
     framebuffer [H, W, 3] (divide by spp / tone map downstream).
 
-    background is a host value: 3 floats. capacities overrides the
+    background is a host value: 3 floats (flat sky) or a (bottom, top)
+    pair (the gradient sky, lerped by ray elevation). capacities overrides the
     compaction schedule (sequence of (bounce, fraction); () disables
     compaction); by default it follows the background. kernel: "auto"
     (the CUDA kernel for a scene on the card, the plain version on the

@@ -3,8 +3,9 @@
 `make_tables` is the host-side table generation the scene builders
 store (perlin.zig:18-38). `noise` and `turb` evaluate the noise at a
 batch of points with plain tensor ops, differentiable in the points:
-the differentiable replay's noise texture uses them. The bounce kernel's
-noise variant is a later slice.
+the differentiable replay's noise texture uses them. The bounce kernel
+and its plain version keep their own copy in the TPU kernel's operation
+order (ops/cuda/megakernel.perlin_turb).
 """
 
 from __future__ import annotations

@@ -33,6 +33,8 @@ from rtweekend_tpu_torch.ops.camera import make_camera
 from rtweekend_tpu_torch.ops.cuda.vjp import trace_paths_fast
 from rtweekend_tpu_torch.parallel.shard import extract_params, merge_params
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 SEED = 3
 BG = (1.0, 1.0, 1.0)
 

@@ -1,6 +1,8 @@
 """rtweekend_tpu_torch bounce megakernel: the plain version against the
 Pallas kernel of rtweekend_tpu (interpret mode, as tests/test_pallas.py
-runs it on the CPU), the compacted driver, and the CUDA wrapper.
+runs it on the CPU) and the compacted driver. The noise, image and
+gradient-sky variants are held the same way in tests/test_torch_noise.py
+and tests/test_torch_image_sky.py, through _plain_vs_pallas below.
 
 Bars are tests/test_pallas.py's for each scene. cornell_box is all rects
 with few-term dot products and no glass: elementwise rtol 1e-5. On
@@ -28,6 +30,22 @@ from rtweekend_tpu_torch.render import camera_for_scene
 SEED = 42
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread while a test module runs. The suite
+    runs one xdist worker per core and the port's tensors are tiny: with
+    PyTorch's default of one OpenMP thread per core in every worker, idle
+    threads spin against each other and a test that takes 1 s alone takes
+    30 s in the suite. Other port test modules import it:
+
+        from test_torch_megakernel import one_torch_thread  # noqa: F401
+    """
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rays(name, aspect, n, device="cpu"):
     """numpy-seeded counters -> the port's camera rays (32x32 pixel grid)."""
     ids = np.arange(n, dtype=np.int32)
@@ -37,20 +55,26 @@ def _rays(name, aspect, n, device="cpu"):
     return (*generate_rays(cam, 32, 32, pid, sid, SEED), pid, sid)
 
 
-def _plain_vs_pallas(name, depth, aspect):
+def _plain_vs_pallas(name, depth, aspect, scenes=None, bg=None):
+    """(port plain radiance, JAX interpret-mode radiance) [1024, 3] on the
+    JAX camera rays of scene `name`; `scenes` (JAX scene, port scene) and
+    `bg` replace the registry scene and its background."""
     n = 1024
     ids = np.arange(n, dtype=np.int32)
     pid, sid = jnp.asarray(ids % 1024), jnp.asarray(ids // 1024)
     cam = jax_camera_for_scene(name, aspect_ratio=aspect)
     o, d, t = jax_generate_rays(cam, 32, 32, pid, sid, jnp.uint32(SEED))
-    bg = SCENE_DEFAULTS[name]["background"]
+    if bg is None:
+        bg = SCENE_DEFAULTS[name]["background"]
+    if scenes is None:
+        scenes = jax_build_scene(name), build_scene(name, device="cpu")
     want = np.asarray(trace_paths_pallas(
-        jax_build_scene(name), o, d, t, pid, sid, jnp.uint32(SEED),
+        scenes[0], o, d, t, pid, sid, jnp.uint32(SEED),
         jnp.asarray(bg, jnp.float32), depth, interpret=True,
     ))
     # same rays on both sides: the JAX camera's output, carried as numpy
     tt = [torch.from_numpy(np.array(x)) for x in (o, d, t, pid, sid)]
-    tables = mk.pack_scene(build_scene(name, device="cpu"))
+    tables = mk.pack_scene(scenes[1])
     got = mk.trace_paths(tables, *tt, SEED, bg, depth).numpy()
     return got, want
 
@@ -110,16 +134,3 @@ def test_compact_keeps_live_rows_in_order():
     rid = g[:, mk.S_RID].view(torch.int32).numpy()
     np.testing.assert_array_equal(rid[:7], [0, 2, 3, 6, 7, 8, 9])
     assert (rid[7:] == 9).all() and (g[7:, mk.S_AL] == 0).all()
-
-
-@pytest.mark.parametrize("name,variant", [
-    ("two_perlin_spheres", "has_noise"),
-    ("earth", "has_image"),
-    ("golden_scene", "has_sky"),
-])
-def test_wrapper_refuses_unported_variants(name, variant):
-    tables = mk.pack_scene(build_scene(name, device="cpu"))
-    rays = _rays(name, 1.0, 64)
-    state = mk.init_state(*rays)
-    with pytest.raises(NotImplementedError, match=variant):
-        mk.trace_segment(tables, state, SEED, SCENE_DEFAULTS[name]["background"], 0, 2)

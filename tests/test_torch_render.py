@@ -22,10 +22,13 @@ from rtweekend_tpu_torch.models.builders import build_scene
 from rtweekend_tpu_torch.render import camera_for_scene, render, render_batch, render_image
 from rtweekend_tpu_torch.ops.cuda.megakernel import pack_scene
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("name", ["final_scene", "cornell_box"])
+@pytest.mark.parametrize("name", ["final_scene", "cornell_box", "two_perlin_spheres",
+                                  "golden_scene"])
 def test_render_image_matches_jax(name):
     kw = dict(scene=name, width=24, height=24, samples_per_pixel=4, max_depth=6)
     want, _ = jax_render_image(JaxRenderConfig(**kw))
@@ -69,10 +72,12 @@ def test_cli_refuses_unported_flags(flags, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
-def test_cli_refuses_unported_scene_variant(tmp_path):
-    with pytest.raises(NotImplementedError, match="has_noise"):
-        cli.main(["two_perlin_spheres", "--width", "8", "--height", "8", "--spp", "1",
-                  "--max-depth", "2", "--cpu", "-o", str(tmp_path / "x.png")])
+def test_cli_writes_png_of_a_noise_scene(tmp_path):
+    out = tmp_path / "perlin.png"
+    rc = cli.main(["two_perlin_spheres", "--width", "12", "--height", "8", "--spp", "2",
+                   "--max-depth", "4", "--cpu", "-o", str(out)])
+    assert rc == 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

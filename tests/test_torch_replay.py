@@ -47,6 +47,8 @@ from rtweekend_tpu_torch.ops.replay import replay_tables, trace_paths_replay_fas
 from rtweekend_tpu_torch.parallel.shard import extract_params, merge_params
 from rtweekend_tpu_torch.utils import perlin
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 W = H = 12
 SPP = 2
 DEPTH = 4

@@ -18,6 +18,8 @@ from rtweekend_tpu_torch.render import camera_for_scene
 from rtweekend_tpu_torch.ops.camera import generate_rays
 from rtweekend_tpu_torch.utils import rng, vecmath
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 # f32 rounding of the camera: a few ulp of the largest coordinate (~13)
 CAM_ATOL = 4e-6
 

@@ -19,6 +19,8 @@ from rtweekend_tpu_torch.models.scene import LEAF_GROUPS, TOP_LEAVES
 from rtweekend_tpu_torch.ops import coeffs
 from rtweekend_tpu_torch.ops.cuda.megakernel import pack_scene
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 META = ("n_spheres", "n_rects", "has_checker", "has_noise", "has_image", "has_motion")
 
 

@@ -29,6 +29,8 @@ from rtweekend_tpu_torch.models.builders import build_scene
 from rtweekend_tpu_torch.parallel.shard import extract_params, sharded_train_step
 from rtweekend_tpu_torch.render import camera_for_scene
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 NAME = "book1_metal_dielectric"
 W = H = 16
 SPP = 4

@@ -34,6 +34,8 @@ from rtweekend_tpu.render import camera_for_scene as jax_camera_for_scene
 from rtweekend_tpu_torch.models.builders import build_scene
 from rtweekend_tpu_torch.ops.cuda import megakernel as mk
 
+from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
+
 SEED = 42
 N = 1024
 
