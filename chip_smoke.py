@@ -13,8 +13,9 @@ Phases, each printed as one JSON line:
                gradient-sky (golden_scene) variants; then every segment of
                one sample batch of the main path at its own shape, for
                final_scene 1200x675 and for golden_scene, two_perlin_spheres,
-               simple_light and earth at 600x400 (each variant's ms/launch
-               and bound);
+               simple_light and earth at 600x400 (each variant's ms/launch,
+               bound, roofline share and the lanes a ray G the wrapper
+               chose);
   3. compact   compacted driver bit-equal to the uncompacted kernel; an
                over-tight schedule raises the overflow flag, and the render
                driver recovers it;
@@ -31,9 +32,13 @@ Phases, each printed as one JSON line:
                variant, a PNG in smoke_out/;
   8. winners_vs_plain  the kernel's want_winners variant against the
                plain version (final_scene, cornell_box, golden_scene,
-               two_perlin_spheres; 65,536 rays, depth 8) on entries alive
-               on both sides, radiance bit-equal to the radiance-only
-               launch, ms/launch with and without winners;
+               two_perlin_spheres; 65,536 rays, depth 8, and the train
+               step's 811,008-lane pass-2 shape at depth 50) on entries
+               alive on both sides, radiance bit-equal to the
+               radiance-only launch, ms/launch with and without winners;
+               then final_scene's full 811,008-lane batch in one
+               uncompacted launch at depth 50 beside the sum of its five
+               render segments;
   9. replay_vs_kernel  the differentiable replay's radiance on kernel
                winners against the kernel's own radiance;
  10. grad_vs_plain  loss gradients through kernel winners against
@@ -48,6 +53,10 @@ Phases, each printed as one JSON line:
                depth 50, 2 steps (one block of 960,000 rays) under its own
                sky, with nonzero c0, radius and albedo gradients; then one
                more step under torch.profiler.
+Kernel times are device time only: the launches are enqueued behind a
+device-side spin that outlasts the enqueueing (utils/timing.device_ms),
+and the host's time per call is reported beside them. The plain version
+synchronises inside, so its time is by events around the calls.
 Then the `kernels` line and, last, the result line. Any failed check
 raises and the script exits non-zero; without a card it exits non-zero
 before printing any result. Imports nothing of JAX or rtweekend_tpu.
@@ -115,8 +124,20 @@ def check(cond, msg):
 
 
 def gpu_ms(fn, reps):
-    """Mean milliseconds of fn() over reps runs, by CUDA events (after one
-    warm-up run)."""
+    """(device ms, host ms) per call of fn() over reps calls (after one
+    warm-up call): the launches are enqueued behind a device-side spin that
+    outlasts the enqueueing, so the CUDA events bracket device time only
+    (utils/timing.device_ms); the host ms is the enqueueing loop's."""
+    from rtweekend_tpu_torch.utils.timing import device_ms
+
+    return device_ms(fn, reps)
+
+
+def synced_ms(fn, reps):
+    """Mean milliseconds of fn() over reps runs, by CUDA events around the
+    calls (after one warm-up run): for work that synchronises with the
+    host inside (the plain version's masked gathers, the replay), where
+    the device waits for the host anyway."""
     import torch
 
     fn()
@@ -148,7 +169,7 @@ def compare(kernel_rad, plain_rad, what, mean_atol=0.0):
                 kernel_means=km.tolist(), plain_means=pm.tolist())
 
 
-def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk, out_bytes=0):
+def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk):
     """Least time (ms) the card could take for this segment's work on this
     data, over the scene's real primitives (the padding of the packed
     tables left out): the coefficient march of every live ray-bounce (17
@@ -158,8 +179,8 @@ def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk, out_bytes=0):
     gradient sky of every live miss, at the fp32 peak; or the state read
     and written once, the real rows of the tables read once (17 features
     per coefficient row, 34 attributes per primitive, the 6 KB Perlin
-    tables and the texel atlas where the variant reads them), plus
-    `out_bytes` of other outputs, at the HBM rate; whichever is larger.
+    tables and the texel atlas where the variant reads them) and the
+    radiance written once, at the HBM rate; whichever is larger.
     Live rays and their hits are counted by stepping the kernel's winners
     variant one bounce at a time (not part of the main path's counts,
     which are reset before each main path)."""
@@ -189,7 +210,7 @@ def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk, out_bytes=0):
     table_bytes += 2 * 768 * 4 if tables.has_noise else 0
     texels = int((scene.image_w.long() * scene.image_h.long()).sum().item())
     table_bytes += texels * 4 if tables.has_image else 0
-    nbytes = out_bytes + (2 * m * 14 + 3 * m) * 4 + table_bytes
+    nbytes = (2 * m * 14 + 3 * m) * 4 + table_bytes
     return dict(spheres=ns, rects=nr, live_ray_bounces=live_rb, noise_hits=noise_hits,
                 image_hits=image_hits, live_misses=live_misses,
                 ops_ms=ops / FP32_FLOPS * 1e3,
@@ -369,9 +390,11 @@ def main() -> int:
                       mean_atol=atol)
         bnd = segment_bound(tables, scene, mk.init_state(o, d, t, pid, sid), 42, bg, 0,
                             depth, mk)
+        k_ms, k_host_ms = gpu_ms(lambda: mk.trace_paths(*args, kernel="cuda"), 5)
         emit("kernel_vs_plain", scene=name, rays=CMP_SIDE ** 2, depth=depth, **res,
-             kernel_ms=gpu_ms(lambda: mk.trace_paths(*args, kernel="cuda"), 5),
-             plain_ms=gpu_ms(lambda: mk.trace_paths(*args, kernel="torch"), 2),
+             kernel_ms=k_ms, kernel_host_ms=k_host_ms,
+             group=mk.trace_segment.last_shape[0], blocks=mk.trace_segment.last_shape[1],
+             plain_ms=synced_ms(lambda: mk.trace_paths(*args, kernel="torch"), 2),
              **bnd, bound_ms=max(bnd["ops_ms"], bnd["bytes_ms"]), card=card)
 
     def main_segments(name, width, height):
@@ -404,11 +427,15 @@ def main() -> int:
             # segment's 30 bounces; their radiance is held by compare() above
             alive_k = (sk[:, mk.S_AL] > 0.5).float().mean().item()
             alive_p = (sp[:, mk.S_AL] > 0.5).float().mean().item()
-            k_ms = gpu_ms(lambda: mk.trace_segment(tables, state, 42, bg, b0, n_b), 3)
-            p_ms = gpu_ms(lambda: mk.trace_segment_plain(tables, state, 42, bg, b0, n_b), 1)
+            k_ms, k_host_ms = gpu_ms(
+                lambda: mk.trace_segment(tables, state, 42, bg, b0, n_b), 10)
+            group, blocks = mk.trace_segment.last_shape
+            p_ms = synced_ms(lambda: mk.trace_segment_plain(tables, state, 42, bg, b0, n_b), 1)
             bnd = segment_bound(tables, scene, state, 42, bg, b0, n_b, mk)
-            seg = dict(b0=b0, bounces=n_b, cap=out_cap, **bnd, kernel_ms=k_ms, plain_ms=p_ms,
-                       bound_ms=max(bnd["ops_ms"], bnd["bytes_ms"]),
+            bound_ms = max(bnd["ops_ms"], bnd["bytes_ms"])
+            seg = dict(b0=b0, bounces=n_b, cap=out_cap, **bnd, kernel_ms=k_ms,
+                       kernel_host_ms=k_host_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                       roofline_share=bound_ms / k_ms, group=group, blocks=blocks,
                        alive_out=alive_k, alive_out_plain=alive_p, max_abs=res["max_abs"],
                        diverged_frac=res["diverged_frac"])
             segs.append(seg)
@@ -536,11 +563,12 @@ def main() -> int:
         wstate = mk.init_state(*wrays)
         rk, wk, _, res = winners_check(mk, wtab, wstate, wbg, depth,
                                        f"{name} {CMP_SIDE ** 2} rays depth {depth} winners")
+        w_ms, w_host_ms = gpu_ms(lambda: mk.trace_segment(
+            wtab, wstate, 42, wbg, 0, depth, want_winners=True), 5)
+        r_ms, _ = gpu_ms(lambda: mk.trace_segment(wtab, wstate, 42, wbg, 0, depth), 5)
         emit("winners_vs_plain", scene=name, rays=CMP_SIDE ** 2, depth=depth, **res,
-             kernel_ms_winners=gpu_ms(lambda: mk.trace_segment(
-                 wtab, wstate, 42, wbg, 0, depth, want_winners=True), 5),
-             kernel_ms_radiance_only=gpu_ms(lambda: mk.trace_segment(
-                 wtab, wstate, 42, wbg, 0, depth), 5), card=card)
+             kernel_ms_winners=w_ms, kernel_host_ms_winners=w_host_ms,
+             kernel_ms_radiance_only=r_ms, card=card)
         if name == "final_scene":
             keep = (wscene, wbg, wrays, rk, wk)
 
@@ -564,7 +592,7 @@ def main() -> int:
 
     emit("replay_vs_kernel", scene="final_scene", rays=n, depth=8, off_frac=frac,
          max_abs=(rep - ker).abs().max().item(), replay_means=rm.tolist(),
-         kernel_means=km.tolist(), replay_forward_ms=gpu_ms(replay_fwd, 3), card=card)
+         kernel_means=km.tolist(), replay_forward_ms=synced_ms(replay_fwd, 3), card=card)
     del keep, rep, ker, rk, wk
 
     # ---- 10. gradients through kernel winners vs plain winners ----
@@ -633,14 +661,31 @@ def main() -> int:
     pstate = mk.init_state(o, d, t, pid, sid)
     _, _, win_plain_ms, win_res = winners_check(
         mk, tables, pstate, bg, MAIN_DEPTH, f"pass-2 shape {pstate.shape[0]} lanes winners")
-    win_ms = gpu_ms(lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH,
-                                             want_winners=True), 3)
-    rad_ms = gpu_ms(lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH), 3)
-    win_bnd = segment_bound(tables, scene, pstate, 42, bg, 0, MAIN_DEPTH, mk,
-                            out_bytes=MAIN_DEPTH * pstate.shape[0] * 4)
+    win_ms, win_host_ms = gpu_ms(lambda: mk.trace_segment(
+        tables, pstate, 42, bg, 0, MAIN_DEPTH, want_winners=True), 3)
+    rad_ms, rad_host_ms = gpu_ms(
+        lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH), 3)
+    group, blocks = mk.trace_segment.last_shape
+    rad_bnd = segment_bound(tables, scene, pstate, 42, bg, 0, MAIN_DEPTH, mk)
+    # the winners output adds its bytes, written once
+    win_bnd = dict(rad_bnd, bytes_ms=rad_bnd["bytes_ms"]
+                   + MAIN_DEPTH * pstate.shape[0] * 4 / HBM_BYTES_S * 1e3)
     emit("winners_pass2_shape", lanes=pstate.shape[0], depth=MAIN_DEPTH, **win_res,
-         kernel_ms_winners=win_ms, kernel_ms_radiance_only=rad_ms, plain_ms=win_plain_ms,
-         **win_bnd, card=card)
+         kernel_ms_winners=win_ms, kernel_host_ms_winners=win_host_ms,
+         kernel_ms_radiance_only=rad_ms, plain_ms=win_plain_ms, **win_bnd,
+         bound_ms=max(win_bnd["ops_ms"], win_bnd["bytes_ms"]), group=group, blocks=blocks,
+         card=card)
+    # the same batch traced in one uncompacted launch against the render's
+    # five compacted segments (data for choosing between them; the render
+    # keeps its segments)
+    one_bound = max(rad_bnd["ops_ms"], rad_bnd["bytes_ms"])
+    emit("full_batch_one_launch", scene="final_scene", width=MAIN_W, height=MAIN_H,
+         lanes=pstate.shape[0], depth=MAIN_DEPTH, kernel_ms=rad_ms,
+         kernel_host_ms=rad_host_ms, bound_ms=one_bound, roofline_share=one_bound / rad_ms,
+         live_ray_bounces=rad_bnd["live_ray_bounces"],
+         segments=len(segs), segments_kernel_ms_sum=sum(sg["kernel_ms"] for sg in segs),
+         segments_bound_ms_sum=sum(sg["bound_ms"] for sg in segs),
+         segments_live_ray_bounces=sum(sg["live_ray_bounces"] for sg in segs), card=card)
     del pstate, o, d, t, pid, sid
     torch.cuda.empty_cache()
 

@@ -34,29 +34,72 @@
 // exact on a static sphere (its center delta is 0) and the texture
 // branches only run for their own texture type, so the general
 // instantiation computes the same function, bit for bit as measured.
-// On the H100 at the 600x400 scenes' segments
-// (rtweekend_tpu_torch/tools/instantiations.py) a noise-only or sky-only
+// On the H100 at the 600x400 scenes' segments a noise-only or sky-only
 // instantiation was no faster than the general one, so neither is built;
-// image alone (72 registers against 80) was ~5% faster on earth.
+// image alone was ~5% faster on earth (PERF.md).
 //
-// Design, simple and correct before fast: one thread per ray, the bounce
-// loop inside the thread, a strict `t < best` scan over the primitives
-// (lowest index wins a tie, like megakernel.py:576-581). The coefficient
-// rows are staged once per block into dynamic shared memory as 5 float4
-// (17 used columns + 3 zero columns of the table): every thread of a warp
-// reads the same row at the same time, a broadcast, and the float4 form
-// needs 5 loads per 17 FMAs. final_scene's 1024 rows take 80 KB, above
-// the 48 KB default, hence cudaFuncSetAttribute. Winner attributes are
-// read from device memory through the read-only cache (__ldg), once per
-// bounce. The winners write is one int per ray-bounce, coalesced across
-// the warp (row b of winners is contiguous in the ray index); with
-// WANT_WINNERS false it compiles away, so the render path's code is
-// unchanged. The Perlin tables (3 x 256 permutation entries and 3 x 256
-// gradient components, 6 KB) and the texel atlas are read through __ldg:
-// the TPU kernel's half-row lookups (_lut256) and chunk walk over the
-// atlas only work around the TPU's 128-lane gather. A texel is fetched
+// Design for Hopper: persistent blocks that refill finished rays, lane
+// groups for small buffers. The function is the first version's (one
+// thread per ray, the bounce loop inside the thread) bit for bit: each
+// ray's arithmetic is unchanged, only where the work runs and in what
+// order. What bounded the first version on this card, and what each part
+// of the design does about it:
+// - Dead lanes (a warp ran while any of its lanes lived: 72.5% of the
+//   lane-bounces of the first render segment live, 5.6% at the train
+//   step's full-depth 811,008-lane launch). Persistent threads that fetch
+//   work dynamically (Aila & Laine, "Understanding the Efficiency of Ray
+//   Traversal on GPUs", HPG 2009): the grid is the occupancy
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the table's dynamic
+//   shared memory, cached per instantiation) times the SM count. A lane
+//   group holds one ray and that ray's own bounce counter b, so its RNG
+//   streams and winners row are b0 + b. When the ray dies or reaches
+//   n_bounces the group's leader writes its state row, its radiance and,
+//   with winners, -1 over the rest of its column; the group then takes the
+//   next ray index from a device counter (zeroed by the C entry with
+//   cudaMemsetAsync on the launch stream) by a warp-aggregated atomicAdd:
+//   ballot of the leaders that need a ray, popc, one atomic a warp. Rays
+//   dead at entry are copied through when fetched.
+// - Too few threads for the late segments (8,192 lanes are 32 blocks on
+//   132 SMs, each thread one ray's 30 bounces over ~490 spheres, a chain
+//   of dependent multiply-adds). Lane groups: G in {1, 2, 4, 8, 16, 32}
+//   lanes share a ray, G chosen by the wrapper from the lane count, the
+//   segment's bounces and the table size (megakernel.launch_shape). A
+//   group's lanes are 32/G apart in the warp (group j is lanes j, j + 32/G,
+//   ...), so the 8 lanes of a quarter-warp hold the same rank of different
+//   groups and read the same coefficient row (G <= 4) or few rows: with
+//   contiguous groups 4 and 8 lanes a ray ran up to 1.7x slower than 2
+//   (PERF.md). Lane k of a group scans primitives k, k+G, ...
+//   and the group reduces (t, index) by xor shuffles in lexicographic
+//   order, smaller t first and the lower index on equal t: the winner of
+//   a strict `t < best` scan in index order (megakernel.py:576-581 takes
+//   the lowest index too). Shading runs in all G lanes with the same
+//   values; the leader writes. Every __shfl_*_sync is reached by the whole
+//   warp: the refill loop is structured at warp level, and exhausted
+//   groups go round with the rest until every group of the warp is done.
+// - One dependent chain per ray-bounce: a lane computes 4 spheres' (8 dot
+//   chains) or 2 rects' (12) dots straight-line before it compares their t
+//   in index order, so the scheduler has independent multiply-adds to
+//   issue; each dot keeps its column order. The roots of the 4 spheres are
+//   skipped when none of their discriminants is positive (all four t are
+//   then BIG and cannot win): per 4 spheres the scan issues 136 FFMA and
+//   40 shared loads against ~30 other instructions.
+// - The table staged once per 256 rays (3,168 blocks at the first render
+//   segment) into 2 resident blocks an SM: a persistent block stages the
+//   coefficient rows once, by TMA bulk copies (cp.async.bulk, one 80-byte
+//   row of the 512-byte-strided table per request, completing on an
+//   mbarrier), as 5 float4 (17 used columns + 3 zero columns). A warp
+//   reads G consecutive rows at a time, one per rank: a broadcast at G = 1,
+//   and at the 80-byte stride 8 consecutive rows fall in distinct banks.
+//   final_scene's 1024 rows take 80 KB, above the 48 KB default, hence
+//   cudaFuncSetAttribute; with the ~115 registers a thread of the unrolled
+//   scan, 2 blocks of 256 fit an SM either way (16 warps).
+// Winner attributes, the Perlin tables (3 x 256 permutation entries and 3
+// x 256 gradient components, 6 KB) and the texel atlas are read through
+// __ldg: the TPU kernel's half-row lookups (_lut256) and chunk walk over
+// the atlas only work around the TPU's 128-lane gather. A texel is fetched
 // only for a live hit on an image texture: for any other ray the texel
-// index is meaningless and may lie outside the atlas.
+// index is meaningless and may lie outside the atlas. With WANT_WINNERS
+// false the winners writes compile away.
 //
 // Numerics: fp32 only, no tensor cores, no fast-math. The sphere c_coef
 // row cancels |beta|^2 ~ 1e6 (r = 1000 ground) to ~1e3, so reduced
@@ -76,21 +119,25 @@
 // 67 TFLOP/s fp32 outside the tensor cores; the state traffic (2 x 56
 // bytes per ray per launch) is far below the memory bound; so is the
 // winners output (4 bytes per ray-bounce: 162 MB for 811,008 rays at depth
-// 50, ~0.05 ms at 3.35 TB/s). Texture work, counted from the code below
-// as arithmetic operations per live hit (chip_smoke.py adds it to the
-// bound): noise 1,338 = 7 octaves x 186 (8 corners x 20 [3 add + 3 and
-// + 2 xor on the lattice indices, 3 sub for the offsets, 2 mul for the
-// weight, 5 for the dot, 2 to accumulate] + 3 floor + 3 sub + 12 for the
-// smoothstep + 3 for 1 - s + 2 to weight the octave + 3 to double the
-// point) + 1 abs + ~30 for sinf's range reduction and polynomial + 5 for
-// the gray value; image 118 = 2 x ~30 for the two Cephes atan2 (abs,
-// compare, select, max, divide, the second reduction, a 4-term
-// polynomial, 3 quadrant fix-ups) + 4 for acos's sqrt(1 - c^2) + 4 pole
-// guard + 2 clamp + 16 for the two rect rows + 4 for u, v + 5 clamp and
-// flip + 6 for the texel index + 10 to unpack + 7 select; sky 15 per live
-// miss (3 for t, 4 for each of the three lerps). This first version makes no
-// attempt to approach the bound.
+// 50, ~0.05 ms at 3.35 TB/s; written a ray at a time, a column per ray,
+// so their sectors merge in L2 rather than across a warp). Texture work,
+// counted from the code below as arithmetic operations per live hit
+// (chip_smoke.py adds it to the bound): noise 1,338 = 7 octaves x 186 (8
+// corners x 20 [3 add + 3 and + 2 xor on the lattice indices, 3 sub for
+// the offsets, 2 mul for the weight, 5 for the dot, 2 to accumulate] + 3
+// floor + 3 sub + 12 for the smoothstep + 3 for 1 - s + 2 to weight the
+// octave + 3 to double the point) + 1 abs + ~30 for sinf's range
+// reduction and polynomial + 5 for the gray value; image 118 = 2 x ~30
+// for the two Cephes atan2 (abs, compare, select, max, divide, the second
+// reduction, a 4-term polynomial, 3 quadrant fix-ups) + 4 for acos's
+// sqrt(1 - c^2) + 4 pole guard + 2 clamp + 16 for the two rect rows + 4
+// for u, v + 5 clamp and flip + 6 for the texel index + 10 to unpack + 7
+// select; sky 15 per live miss (3 for t, 4 for each of the three lerps).
+// What is left between the design and that bound: the shared-memory loads
+// (5 LDS.128 for 17 FMAs a row, one ray a lane), the tail of a launch (the
+// last rays' bounces run alone), and the redundant shading of a lane group.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,7 +145,10 @@ namespace {
 
 constexpr int NF = 17;
 constexpr int ROW_F4 = 5;   // one coefficient row in shared memory: 5 float4
-constexpr int BLOCK = 256;
+constexpr int ROW_BYTES = ROW_F4 * 16;
+constexpr int BLOCK = 256;  // ops/cuda/megakernel.py's BLOCK
+constexpr int MIN_BLOCKS = 2;  // two blocks an SM: at most 128 registers a thread
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int SW = 14;      // state row width, see ops/cuda/megakernel.py
 enum { S_OX, S_OY, S_OZ, S_DX, S_DY, S_DZ, S_TM, S_PID, S_SID,
        S_TR, S_TG, S_TB, S_AL, S_RID };
@@ -130,6 +180,8 @@ struct Params {
   int attr_stride;
   int s_pad;
   int r_pad;
+  int s_live;            // spheres scanned: up to the last active one
+  int r_live;            // rects scanned: up to the last active one
   const int* perm;       // [8, 128]: px[0:256], py[256:512], pz[512:768]
   const float* grad;     // [8, 128]: gx[0:256], gy[256:512], gz[512:768]
   const int* images;     // packed RGBA texels, r | g<<8 | b<<16 | a<<24
@@ -144,6 +196,8 @@ struct Params {
   int b0;
   int n_bounces;
   float t_min;
+  int group;             // lanes a ray: 1, 2, 4, 8, 16 or 32
+  int* counter;          // next ray index, 0 at launch
 };
 
 __device__ __forceinline__ void pcg4d(uint32_t& x, uint32_t& y, uint32_t& z,
@@ -297,84 +351,229 @@ __device__ __noinline__ float3 image_rgb(const float* __restrict__ af,
                      (float)((packed >> 16) & 255) * inv);
 }
 
-template <bool HAS_MOTION, bool WANT_WINNERS, bool HAS_NOISE, bool HAS_IMAGE,
-          bool HAS_SKY>
-__global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
-  extern __shared__ float4 s_coef[];
-  const int n_f4 = p.n_rows * ROW_F4;
-  for (int k = threadIdx.x; k < n_f4; k += blockDim.x) {
-    const int r = k / ROW_F4;
-    const int q = k - r * ROW_F4;
-    s_coef[k] = __ldg(
-        reinterpret_cast<const float4*>(p.coef + (size_t)r * p.coef_stride) + q);
+// A sphere's discriminant and hit distance from its two coefficient dots
+// (coeffs.quadratic_t); t is BIG unless disc > 0.
+__device__ __forceinline__ float sphere_disc(float hb, float cc, float a) {
+  return hb * hb - a * cc;
+}
+
+__device__ __forceinline__ float sphere_t(float hb, float disc, float inv_a, float t_min) {
+  float t = BIG;
+  if (disc > 0.f) {
+    const float sq = sqrtf(disc);
+    const float root1 = -(hb + sq) * inv_a;
+    const float root2 = (sq - hb) * inv_a;
+    const float t12 = root1 >= t_min ? root1 : root2;
+    if (t12 >= t_min) t = t12;
+  }
+  return t;
+}
+
+// A rect's hit distance from its six coefficient dots (coeffs.rect_t). The
+// u and v dots are computed whether or not dn is 0: t is BIG then either way.
+__device__ __forceinline__ float rect_t(float kn, float dn, float ua, float da,
+                                        float vb, float db, float t_min) {
+  float t = BIG;
+  if (dn != 0.f) {
+    const float tt = kn / dn;
+    const float u = ua + tt * da;
+    const float v = vb + tt * db;
+    if (tt >= t_min && u >= 0.f && u <= 1.f && v >= 0.f && v <= 1.f) t = tt;
+  }
+  return t;
+}
+
+// This lane's share of the closest-hit scan: primitives k, k+G, ... in index
+// order, strict `t < best`, so (best, idx) is the lexicographic minimum of
+// (t, index) over the share (idx stays INT_MAX while nothing is below BIG).
+// 4 spheres (8 dot chains) or 2 rects (12) are computed before their t are
+// compared. Only the first s_live spheres and r_live rects are scanned: the
+// rows of the inactive primitives after them are zero (t = BIG, never a
+// winner). S and R are the padded counts that lay the rows out.
+__device__ __forceinline__ void scan_share(const float4* __restrict__ rows, int S, int R,
+                                           int s_live, int r_live, int k, int G,
+                                           const float* f, float a, float inv_a, float t_min,
+                                           float& best, int& idx) {
+  int s = k;
+  for (; s + 3 * G < s_live; s += 4 * G) {
+    float hb[4], disc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      hb[u] = dot_row(rows + (s + u * G) * ROW_F4, f);
+      disc[u] = sphere_disc(hb[u], dot_row(rows + (S + s + u * G) * ROW_F4, f), a);
+    }
+    // most spheres miss most rays: with no positive discriminant all four
+    // t are BIG and none can win, so their roots are skipped
+    if (fmaxf(fmaxf(disc[0], disc[1]), fmaxf(disc[2], disc[3])) > 0.f) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float t = sphere_t(hb[u], disc[u], inv_a, t_min);
+        if (t < best) { best = t; idx = s + u * G; }
+      }
+    }
+  }
+  for (; s < s_live; s += G) {
+    const float hb = dot_row(rows + s * ROW_F4, f);
+    const float t = sphere_t(hb, sphere_disc(hb, dot_row(rows + (S + s) * ROW_F4, f), a),
+                             inv_a, t_min);
+    if (t < best) { best = t; idx = s; }
+  }
+  const float4* rr = rows + 2 * S * ROW_F4;
+  int r = k;
+  for (; r + G < r_live; r += 2 * G) {
+    float d[2][6];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) d[u][q] = dot_row(rr + (q * R + r + u * G) * ROW_F4, f);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float t = rect_t(d[u][0], d[u][1], d[u][2], d[u][3], d[u][4], d[u][5], t_min);
+      if (t < best) { best = t; idx = S + r + u * G; }
+    }
+  }
+  for (; r < r_live; r += G) {
+    float d[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) d[q] = dot_row(rr + (q * R + r) * ROW_F4, f);
+    const float t = rect_t(d[0], d[1], d[2], d[3], d[4], d[5], t_min);
+    if (t < best) { best = t; idx = S + r; }
+  }
+}
+
+// Stage the coefficient rows into shared memory once per block: one TMA bulk
+// copy (cp.async.bulk) of 80 bytes per row, all completing on one mbarrier
+// whose transaction count thread 0 sets before any copy is issued.
+__device__ __forceinline__ void stage_rows(const Params& p, float4* s_coef,
+                                           unsigned long long* bar) {
+  const uint32_t bar_a = (uint32_t)__cvta_generic_to_shared(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar_a) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar_a), "r"((uint32_t)(p.n_rows * ROW_BYTES)) : "memory");
   }
   __syncthreads();
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(s_coef);
+  for (int r = threadIdx.x; r < p.n_rows; r += blockDim.x) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        :: "r"(dst + (uint32_t)(r * ROW_BYTES)), "l"(p.coef + (size_t)r * p.coef_stride),
+           "r"(ROW_BYTES), "r"(bar_a) : "memory");
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred q;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 q, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, q;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar_a) : "memory");
+  }
+}
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.m) return;
+template <bool HAS_MOTION, bool WANT_WINNERS, bool HAS_NOISE, bool HAS_IMAGE,
+          bool HAS_SKY>
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) bounce_kernel(const Params p) {
+  extern __shared__ float4 s_coef[];
+  __shared__ __align__(8) unsigned long long s_bar;
+  stage_rows(p, s_coef, &s_bar);
 
-  const float* in = p.state_in + (size_t)i * SW;
-  float ox = in[S_OX], oy = in[S_OY], oz = in[S_OZ];
-  float dx = in[S_DX], dy = in[S_DY], dz = in[S_DZ];
-  float tr = in[S_TR], tg = in[S_TG], tb = in[S_TB];
-  const float time = in[S_TM];
-  const float al_in = in[S_AL];
-  const uint32_t pix = __float_as_uint(in[S_PID]);
-  const uint32_t smp = __float_as_uint(in[S_SID]);
-  const bool alive_in = al_in > 0.5f;
-  bool alive = alive_in;
-  float rr = 0.f, rg = 0.f, rb = 0.f;
-
+  const int lane = threadIdx.x & 31;
+  const int G = p.group;
+  const int stride = 32 / G;       // groups in a warp; a group's lanes are stride apart
+  const int k = lane / stride;     // this lane's rank in its group
+  const int leader = lane - k * stride;
+  const bool lead = k == 0;
+  const size_t m = (size_t)p.m;
   const int S = p.s_pad;
   const int R = p.r_pad;
   const float t_min = p.t_min;
-  const float4* rect_rows = s_coef + 2 * S * ROW_F4;
   const float* af = p.attr_f;
   const int* ai = p.attr_i;
   const size_t ast = (size_t)p.attr_stride;
 
+  // the group's ray (i < 0: none) and its carried state
+  int i = -1;
+  bool exhausted = false;
   int b = 0;
-  for (; b < p.n_bounces && alive; ++b) {
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 1.f;
+  float tr = 0.f, tg = 0.f, tb = 0.f, time = 0.f;
+  float rr = 0.f, rg = 0.f, rb = 0.f;
+  uint32_t pix = 0, smp = 0;
+
+  for (;;) {
+    // ---- refill: every group without a ray takes the next live one ----
+    for (;;) {
+      const bool need = i < 0 && !exhausted;
+      const unsigned want = __ballot_sync(FULL, need && lead);
+      if (want == 0) break;
+      const int first = __ffs(want) - 1;
+      int base = 0;
+      if (lane == first) base = atomicAdd(p.counter, __popc(want));
+      base = __shfl_sync(FULL, base, first);
+      if (need) {
+        const int ray = base + __popc(want & ((1u << leader) - 1u));
+        if (ray >= p.m) {
+          exhausted = true;
+        } else {
+          const float* in = p.state_in + (size_t)ray * SW;
+          const float al_in = in[S_AL];
+          if (al_in > 0.5f && p.n_bounces > 0) {
+            i = ray;
+            b = 0;
+            ox = in[S_OX]; oy = in[S_OY]; oz = in[S_OZ];
+            dx = in[S_DX]; dy = in[S_DY]; dz = in[S_DZ];
+            tr = in[S_TR]; tg = in[S_TG]; tb = in[S_TB];
+            time = in[S_TM];
+            pix = __float_as_uint(in[S_PID]);
+            smp = __float_as_uint(in[S_SID]);
+            rr = 0.f; rg = 0.f; rb = 0.f;
+          } else if (lead) {
+            // dead at entry: the row passes through and adds nothing (a
+            // live row with no bounce to trace leaves alive, as 1)
+            float* out = p.state_out + (size_t)ray * SW;
+#pragma unroll
+            for (int c = 0; c < SW; ++c) out[c] = in[c];
+            if (al_in > 0.5f) out[S_AL] = 1.0f;
+            p.rad[ray] = 0.f;
+            p.rad[m + ray] = 0.f;
+            p.rad[2 * m + ray] = 0.f;
+            if (WANT_WINNERS) {
+              for (int bb = 0; bb < p.n_bounces; ++bb) p.winners[(size_t)bb * m + ray] = -1;
+            }
+          }
+        }
+      }
+    }
+    const bool active = i >= 0;
+    if (__ballot_sync(FULL, active) == 0) break;
+
     // ---- closest hit over all primitives (megakernel.py:535-586) ----
     const float o_d = ox * dx + oy * dy + oz * dz;
     const float o_o = ox * ox + oy * oy + oz * oz;
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv_a = 1.0f / a;
-    const float f[NF] = {dx, dy, dz, time * dx, time * dy, time * dz, o_d,
-                         ox, oy, oz, time * ox, time * oy, time * oz,
-                         time, time * time, o_o, 1.0f};
     float best = BIG;
-    int idx = 0;
-    for (int s = 0; s < S; ++s) {
-      const float hb = dot_row(s_coef + s * ROW_F4, f);
-      const float cc = dot_row(s_coef + (S + s) * ROW_F4, f);
-      const float disc = hb * hb - a * cc;
-      float t = BIG;
-      if (disc > 0.f) {  // coeffs.quadratic_t
-        const float sq = sqrtf(disc);
-        const float root1 = -(hb + sq) * inv_a;
-        const float root2 = (sq - hb) * inv_a;
-        const float t12 = root1 >= t_min ? root1 : root2;
-        if (t12 >= t_min) t = t12;
-      }
-      if (t < best) { best = t; idx = s; }
+    int idx = INT_MAX;
+    if (active) {
+      const float f[NF] = {dx, dy, dz, time * dx, time * dy, time * dz, o_d,
+                           ox, oy, oz, time * ox, time * oy, time * oz,
+                           time, time * time, o_o, 1.0f};
+      scan_share(s_coef, S, R, p.s_live, p.r_live, k, G, f, a, inv_a, t_min, best, idx);
     }
-    for (int r = 0; r < R; ++r) {
-      const float kn = dot_row(rect_rows + r * ROW_F4, f);
-      const float dn = dot_row(rect_rows + (R + r) * ROW_F4, f);
-      float t = BIG;
-      if (dn != 0.f) {  // coeffs.rect_t
-        const float tt = kn / dn;
-        const float u = dot_row(rect_rows + (2 * R + r) * ROW_F4, f)
-                      + tt * dot_row(rect_rows + (3 * R + r) * ROW_F4, f);
-        const float v = dot_row(rect_rows + (4 * R + r) * ROW_F4, f)
-                      + tt * dot_row(rect_rows + (5 * R + r) * ROW_F4, f);
-        if (tt >= t_min && u >= 0.f && u <= 1.f && v >= 0.f && v <= 1.f) t = tt;
-      }
-      if (t < best) { best = t; idx = S + r; }
+    // the group's winner: smaller t first, the lower index on equal t
+    for (int off = stride; off < 32; off <<= 1) {
+      const float ob = __shfl_xor_sync(FULL, best, off);
+      const int oi = __shfl_xor_sync(FULL, idx, off);
+      if (ob < best || (ob == best && oi < idx)) { best = ob; idx = oi; }
     }
+    if (!active) continue;
+
     const bool hit = best < BIG * 0.5f;
-    if (WANT_WINNERS) p.winners[(size_t)b * p.m + i] = hit ? idx : -1;
+    if (WANT_WINNERS && lead) p.winners[(size_t)b * m + i] = hit ? idx : -1;
     const float t_eff = hit ? best : 1.0f;
     const float px = ox + t_eff * dx;
     const float py = oy + t_eff * dy;
@@ -407,7 +606,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
     const float sgn = front ? 1.f : -1.f;
     const float nx = onx * sgn, ny = ony * sgn, nz = onz * sgn;
 
-    // ---- RNG (megakernel.py:645-665) ----
+    // ---- RNG (megakernel.py:645-665), streams of this ray's own bounce ----
     const uint32_t stream_a = BOUNCE_STREAM0 + 2u * (uint32_t)(p.b0 + b);
     uint32_t x0 = pix, y0 = smp, z0 = stream_a, w0 = p.seed;
     pcg4d(x0, y0, z0, w0);
@@ -516,77 +715,153 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(const Params p) {
     rr = rr + (em ? tr * tex_r : 0.f) + (hit ? 0.f : tr * sky_r);
     rg = rg + (em ? tg * tex_g : 0.f) + (hit ? 0.f : tg * sky_g);
     rb = rb + (em ? tb * tex_b : 0.f) + (hit ? 0.f : tb * sky_b);
-    alive = hit && sc_alive;
+    const bool alive = hit && sc_alive;
     if (alive) {
       tr = tr * at_r; tg = tg * at_g; tb = tb * at_b;
       ox = px; oy = py; oz = pz;
       dx = ndx; dy = ndy; dz = ndz;
     }
-  }
+    ++b;
 
-  if (WANT_WINNERS) {
-    // dead rays take no decision: the rest of their column is -1
-    for (; b < p.n_bounces; ++b) p.winners[(size_t)b * p.m + i] = -1;
+    // ---- the ray is done: write it out, free the group ----
+    if (!alive || b >= p.n_bounces) {
+      if (lead) {
+        if (WANT_WINNERS) {
+          // dead rays take no decision: the rest of their column is -1
+          for (int bb = b; bb < p.n_bounces; ++bb) p.winners[(size_t)bb * m + i] = -1;
+        }
+        const float* in = p.state_in + (size_t)i * SW;
+        float* out = p.state_out + (size_t)i * SW;
+        out[S_OX] = ox; out[S_OY] = oy; out[S_OZ] = oz;
+        out[S_DX] = dx; out[S_DY] = dy; out[S_DZ] = dz;
+        out[S_TM] = time;
+        out[S_PID] = in[S_PID]; out[S_SID] = in[S_SID];
+        out[S_TR] = tr; out[S_TG] = tg; out[S_TB] = tb;
+        out[S_AL] = alive ? 1.0f : 0.0f;
+        out[S_RID] = in[S_RID];
+        p.rad[i] = rr;
+        p.rad[m + i] = rg;
+        p.rad[2 * m + i] = rb;
+      }
+      i = -1;
+    }
   }
-
-  float* out = p.state_out + (size_t)i * SW;
-  out[S_OX] = ox; out[S_OY] = oy; out[S_OZ] = oz;
-  out[S_DX] = dx; out[S_DY] = dy; out[S_DZ] = dz;
-  out[S_TM] = time;
-  out[S_PID] = in[S_PID]; out[S_SID] = in[S_SID];
-  out[S_TR] = tr; out[S_TG] = tg; out[S_TB] = tb;
-  out[S_AL] = alive_in ? (alive ? 1.0f : 0.0f) : al_in;
-  out[S_RID] = in[S_RID];
-  p.rad[i] = rr;
-  p.rad[(size_t)p.m + i] = rg;
-  p.rad[2 * (size_t)p.m + i] = rb;
 }
 
-template <bool HAS_MOTION, bool WANT_WINNERS, bool HAS_NOISE, bool HAS_IMAGE,
-          bool HAS_SKY>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = bounce_kernel<HAS_MOTION, WANT_WINNERS, HAS_NOISE, HAS_IMAGE, HAS_SKY>;
-  const size_t smem = (size_t)p.n_rows * ROW_F4 * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+using KernelFn = void (*)(Params);
+
+// Per (instantiation, device): the dynamic shared memory the kernel was
+// allowed and its resident blocks an SM at a given table size, so that
+// neither is queried from CUDA again for the same launch shape.
+struct FnCache {
+  KernelFn fn;
+  int device;
+  size_t smem_allowed;
+  size_t occ_smem;
+  int occ_blocks;
+};
+constexpr int N_CACHE = 64;
+FnCache g_cache[N_CACHE];
+int g_cached = 0;
+
+cudaError_t prepare(KernelFn fn, size_t smem, FnCache** out) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((p.m + BLOCK - 1) / BLOCK));
-  kernel<<<grid, BLOCK, smem, stream>>>(p);
+  FnCache* c = nullptr;
+  for (int n = 0; n < g_cached; ++n)
+    if (g_cache[n].fn == fn && g_cache[n].device == device) c = &g_cache[n];
+  if (c == nullptr) {
+    if (g_cached == N_CACHE) return cudaErrorMemoryAllocation;
+    c = &g_cache[g_cached++];
+    *c = FnCache{fn, device, 0, (size_t)-1, 0};
+  }
+  if (smem > c->smem_allowed) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    c->smem_allowed = smem;
+  }
+  *out = c;
+  return cudaSuccess;
+}
+
+cudaError_t blocks_per_sm(KernelFn fn, size_t smem, int* blocks) {
+  FnCache* c = nullptr;
+  cudaError_t err = prepare(fn, smem, &c);
+  if (err != cudaSuccess) return err;
+  if (c->occ_smem != smem) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, BLOCK, smem);
+    if (err != cudaSuccess) return err;
+    c->occ_smem = smem;
+    c->occ_blocks = n;
+  }
+  *blocks = c->occ_blocks;
+  return cudaSuccess;
+}
+
+cudaError_t launch(KernelFn fn, const Params& p, int blocks, cudaStream_t stream) {
+  const size_t smem = (size_t)p.n_rows * ROW_BYTES;
+  FnCache* c = nullptr;
+  cudaError_t err = prepare(fn, smem, &c);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(p.counter, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  fn<<<dim3((unsigned)blocks), BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The instantiation for a variant mask: motion alone, none and image
 // alone, and the general one for any other set (see the note at the top).
 template <bool W>
-cudaError_t dispatch(const Params& p, int variant, cudaStream_t s) {
+KernelFn pick_kernel(int variant) {
   switch (variant) {
-    case V_MOTION: return launch<true, W, false, false, false>(p, s);
-    case 0:        return launch<false, W, false, false, false>(p, s);
-    case V_IMAGE:  return launch<false, W, false, true, false>(p, s);
+    case V_MOTION: return bounce_kernel<true, W, false, false, false>;
+    case 0:        return bounce_kernel<false, W, false, false, false>;
+    case V_IMAGE:  return bounce_kernel<false, W, false, true, false>;
     default:
-      return (variant & V_SKY) ? launch<true, W, true, true, true>(p, s)
-                               : launch<true, W, true, true, false>(p, s);
+      return (variant & V_SKY) ? bounce_kernel<true, W, true, true, true>
+                               : bounce_kernel<true, W, true, true, false>;
   }
+}
+
+KernelFn pick_kernel(int variant, bool winners) {
+  return winners ? pick_kernel<true>(variant) : pick_kernel<false>(variant);
 }
 
 }  // namespace
 
-// Plain C interface, bound with ctypes (ops/cuda/megakernel.py). Launches
-// on `stream`, allocates nothing, does not synchronise; returns the
-// cudaError_t of the launch (0 on success). `variant` is a mask of
-// 1 motion, 2 noise, 4 image, 8 gradient sky. `bg` holds six floats: the
-// flat sky (or the gradient sky's bottom), then the gradient sky's top.
-// `winners` is null for the radiance-only variant, else an [n_bounces, m]
-// int32 buffer the kernel fills completely.
+// Plain C interface, bound with ctypes (ops/cuda/megakernel.py).
+//
+// rtw_bounce_blocks_per_sm: the resident blocks an SM of the instantiation
+// for (variant, winners) at n_rows coefficient rows, on the current device;
+// the wrapper multiplies it by the SM count for the persistent grid.
+extern "C" int rtw_bounce_blocks_per_sm(int n_rows, int variant, int winners,
+                                        int* blocks) {
+  return (int)blocks_per_sm(pick_kernel(variant, winners != 0),
+                            (size_t)n_rows * ROW_BYTES, blocks);
+}
+
+// rtw_bounce_segment: one launch of `blocks` persistent blocks of 256
+// threads, `group` lanes a ray. Zeroes `counter` (one int32 of device
+// memory, the next ray index) and launches on `stream`; allocates nothing,
+// does not synchronise; returns the cudaError_t of the launch (0 on
+// success). `variant` is a mask of 1 motion, 2 noise, 4 image, 8 gradient
+// sky. `bg` holds six floats: the flat sky (or the gradient sky's bottom),
+// then the gradient sky's top. `winners` is null for the radiance-only
+// variant, else an [n_bounces, m] int32 buffer the kernel fills completely.
 extern "C" int rtw_bounce_segment(
     const void* coef, int n_rows, int coef_stride,
     const void* attr_f, const void* attr_i, int attr_stride,
-    int s_pad, int r_pad, int variant,
+    int s_pad, int r_pad, int s_live, int r_live, int variant,
     const void* perm, const void* grad, const void* images,
     const void* state_in, void* state_out, void* rad, void* winners, int m,
     unsigned int seed, float bg_r, float bg_g, float bg_b,
     float bg1_r, float bg1_g, float bg1_b,
-    int b0, int n_bounces, float t_min, void* stream) {
+    int b0, int n_bounces, float t_min,
+    int group, int blocks, void* counter, void* stream) {
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.coef = static_cast<const float*>(coef);
   p.coef_stride = coef_stride;
@@ -596,6 +871,8 @@ extern "C" int rtw_bounce_segment(
   p.attr_stride = attr_stride;
   p.s_pad = s_pad;
   p.r_pad = r_pad;
+  p.s_live = s_live;
+  p.r_live = r_live;
   p.perm = static_cast<const int*>(perm);
   p.grad = static_cast<const float*>(grad);
   p.images = static_cast<const int*>(images);
@@ -614,10 +891,10 @@ extern "C" int rtw_bounce_segment(
   p.b0 = b0;
   p.n_bounces = n_bounces;
   p.t_min = t_min;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = winners != nullptr ? dispatch<true>(p, variant, s)
-                                             : dispatch<false>(p, variant, s);
-  return (int)err;
+  p.group = group;
+  p.counter = static_cast<int*>(counter);
+  return (int)launch(pick_kernel(variant, winners != nullptr), p, blocks,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* rtw_error_string(int code) {

@@ -75,20 +75,27 @@ def build() -> Built:
 def load():
     """(ctypes library with argtypes set, Built record)."""
     built = build()
-    lib = ctypes.CDLL(str(built.path))
+    return bind(ctypes.CDLL(str(built.path))), built
+
+
+def bind(lib):
+    """Set the argument and result types of the library's C entries."""
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.rtw_bounce_segment.argtypes = [
         p, i, i,        # coef, n_rows, coef_stride
         p, p, i,        # attr_f, attr_i, attr_stride
-        i, i, i,        # s_pad, r_pad, variant mask
+        i, i, i, i, i,  # s_pad, r_pad, s_live, r_live, variant mask
         p, p, p,        # perm, grad, images
         p, p, p, p, i,  # state_in, state_out, rad, winners (or None), m
         u, f, f, f,     # seed, background rgb (the gradient sky's bottom)
         f, f, f,        # the gradient sky's top
         i, i, f,        # b0, n_bounces, t_min
+        i, i, p,        # group, blocks, counter
         p,              # stream
     ]
     lib.rtw_bounce_segment.restype = ctypes.c_int
+    lib.rtw_bounce_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.rtw_bounce_blocks_per_sm.restype = ctypes.c_int
     lib.rtw_error_string.argtypes = [ctypes.c_int]
     lib.rtw_error_string.restype = ctypes.c_char_p
-    return lib, built
+    return lib

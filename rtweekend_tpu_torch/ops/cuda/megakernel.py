@@ -25,6 +25,7 @@ most once), so compacted output is bit-equal to the uncompacted output.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -72,10 +73,12 @@ STATE_FIELDS = (
 (S_OX, S_OY, S_OZ, S_DX, S_DY, S_DZ, S_TM, S_PID, S_SID,
  S_TR, S_TG, S_TB, S_AL, S_RID) = range(len(STATE_FIELDS))
 
-# Shared memory one block may use on Hopper; the kernel stages the
-# coefficient rows there as 20 floats each.
-_SMEM_LIMIT = 232448
+# Shared memory one block may use on Hopper, less the kernel's mbarrier; the
+# kernel stages the coefficient rows there as 20 floats each.
+_SMEM_LIMIT = 232448 - 8
 _ROW_BYTES = 80
+# the next-ray counter may pass m by one ray for every lane group
+_MAX_RAYS = 2**31 - 2**20
 
 
 @dataclasses.dataclass
@@ -90,7 +93,11 @@ class Tables:
     - perm/grad [8, 128]: the Perlin tables as half-rows; flattened,
       [0:256] is the x table, [256:512] y, [512:768] z;
     - images [C', 128] i32: the packed RGBA texel atlas (r | g<<8 |
-      b<<16 | a<<24), read at image_base + row * width + column.
+      b<<16 | a<<24), read at image_base + row * width + column;
+    - s_live / r_live: the spheres and rects the kernel scans, up to the
+      last active one of each; the rows of the inactive primitives after
+      them are zero and never win, so the scan skips them (the plain
+      version scans every row).
     """
 
     coef: torch.Tensor
@@ -101,6 +108,8 @@ class Tables:
     images: torch.Tensor
     s_pad: int
     r_pad: int
+    s_live: int
+    r_live: int
     has_noise: bool
     has_image: bool
     has_motion: bool
@@ -172,10 +181,15 @@ def pack_scene(scene: Scene) -> Tables:
         g[:128, 0], g[128:, 0], g[:128, 1], g[128:, 1],
         g[:128, 2], g[128:, 2], zf, zf,
     ])
+    # one device-to-host read: where the active primitives end
+    act = torch.cat([sp.active, rc.active]).cpu()
+    s_live = int(act[:s_pad].nonzero().max()) + 1 if bool(act[:s_pad].any()) else 0
+    r_live = int(act[s_pad:].nonzero().max()) + 1 if bool(act[s_pad:].any()) else 0
     return Tables(
         coef=coef.contiguous(), attr_f=attr_f.contiguous(),
         attr_i=attr_i.contiguous(), perm=perm, grad=grad,
         images=scene.images_packed, s_pad=int(s_pad), r_pad=int(r_pad),
+        s_live=s_live, r_live=r_live,
         has_noise=bool(scene.has_noise), has_image=bool(scene.has_image),
         has_motion=bool(scene.has_motion),
     )
@@ -569,13 +583,18 @@ def _check_cuda_args(tables: Tables, state: torch.Tensor):
     n_rows = 2 * tables.s_pad + 6 * tables.r_pad
     if tables.coef.shape != (n_rows, 128):
         raise ValueError(f"coef must be [{n_rows}, 128], got {tuple(tables.coef.shape)}")
+    if not (0 <= tables.s_live <= tables.s_pad and 0 <= tables.r_live <= tables.r_pad):
+        raise ValueError(f"s_live/r_live ({tables.s_live}, {tables.r_live}) must lie within "
+                         f"s_pad/r_pad ({tables.s_pad}, {tables.r_pad})")
+    if tables.coef.data_ptr() % 16:
+        raise ValueError("coef must be 16-byte aligned (the kernel bulk-copies its rows)")
     pc = tables.attr_f.shape[1]
     if tables.attr_f.shape[0] != 29 or tables.attr_i.shape != (5, pc) \
             or pc < tables.s_pad + tables.r_pad:
         raise ValueError("attr_f/attr_i must be [29, C*128] / [5, C*128]")
     if state.dim() != 2 or state.shape[1] != len(STATE_FIELDS):
         raise ValueError(f"state must be [m, {len(STATE_FIELDS)}], got {tuple(state.shape)}")
-    if state.shape[0] >= 2**31:
+    if state.shape[0] >= _MAX_RAYS:
         raise ValueError("too many rays for one launch")
     if n_rows * _ROW_BYTES > _SMEM_LIMIT:
         raise ValueError(
@@ -584,13 +603,116 @@ def _check_cuda_args(tables: Tables, state: torch.Tensor):
         )
 
 
+BLOCK = 256   # threads a block (csrc/megakernel.cu's BLOCK)
+GROUPS = (1, 2, 4, 8, 16, 32)   # lanes a ray the kernel takes
+# launch_shape's thresholds, from timing every G at every segment of the
+# render paths and at the train step's depth-50 launch on the H100
+# (tools/segments.py --groups; PERF.md), counting the rows the scan reads.
+# A scan-heavy table whose buffer fills the resident threads wants
+# m * G >= (n_bounces + 3) * threads: a longer segment spreads its rays'
+# lifetimes over more bounces, and more lanes a ray shorten the longest
+# ones. A smaller buffer, or a small table whose shading dominates (extra
+# lanes repeat it), wants 1.5 x threads.
+_HEAVY_ROWS = 256     # a table of this many rows is scan-heavy
+_FILL_SMALL = 1.5
+_ROWS_PER_LANE = 8    # G <= n_rows / 8: each lane scans 8 rows or more
+
+
+def launch_shape(m: int, n_sm: int, blocks_per_sm: int, n_rows: int, n_bounces: int,
+                 group: int | None = None):
+    """(G, blocks) of one persistent launch over m lanes, n_bounces bounces,
+    n_rows coefficient rows scanned (2 s_live + 6 r_live): `blocks`
+    resident blocks of BLOCK threads (the SM count times the blocks an SM
+    holds, fewer if m * G lanes need fewer), G lanes a ray. G is the
+    smallest of GROUPS up to n_rows / 8 for which m * G is at least F
+    times the resident threads, F = n_bounces + 3 for _HEAVY_ROWS rows or
+    more while m alone fills the threads, else 1.5; the largest allowed G
+    if none is. `group` forces G."""
+    full = n_sm * blocks_per_sm
+    threads = full * BLOCK
+    if group is None:
+        top = max(g for g in GROUPS if g == 1 or g * _ROWS_PER_LANE <= n_rows)
+        fill = (n_bounces + 3 if n_rows >= _HEAVY_ROWS and m >= threads
+                else _FILL_SMALL)
+        group = next((g for g in GROUPS if g <= top and m * g >= fill * threads), top)
+    elif group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group!r}")
+    return group, max(1, min(full, -(-m * group // BLOCK)))
+
+
+_COUNTERS: dict = {}
+
+
+def _variant(tables: Tables, has_sky: bool) -> int:
+    return (int(tables.has_motion) | 2 * int(tables.has_noise)
+            | 4 * int(tables.has_image) | 8 * int(has_sky))
+
+
+def _blocks_per_sm(lib, variant: int, want_winners: bool, n_rows: int) -> int:
+    """Resident blocks an SM of the instantiation at this table size, on
+    the current device (cached on the C side)."""
+    out = ctypes.c_int(0)
+    rc = lib.rtw_bounce_blocks_per_sm(n_rows, variant, int(want_winners), ctypes.byref(out))
+    if rc != 0:
+        msg = lib.rtw_error_string(rc).decode()
+        raise RuntimeError(f"bounce kernel occupancy query failed: CUDA error {rc} ({msg})")
+    if out.value < 1:
+        raise RuntimeError(f"no block of the bounce kernel fits an SM at {n_rows} rows")
+    return out.value
+
+
+def _counter(dev, stream: int) -> torch.Tensor:
+    """The next-ray counter of one (device, stream): one int32, zeroed by
+    the C entry on the launch stream before each launch."""
+    key = (dev.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _COUNTERS[key]
+
+
+def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
+            n_bounces: int, t_min: float, want_winners: bool, group: int, blocks: int,
+            counter: torch.Tensor, stream: int):
+    """Allocate the outputs and launch once through the C entry."""
+    m = state.shape[0]
+    rad = torch.empty((3, m), dtype=torch.float32, device=state.device)
+    out = torch.empty_like(state)
+    # the kernel writes every entry, -1 after a ray's death included
+    win = (torch.empty((n_bounces, m), dtype=torch.int32, device=state.device)
+           if want_winners else None)
+    rc = lib.rtw_bounce_segment(
+        tables.coef.data_ptr(), tables.coef.shape[0], tables.coef.shape[1],
+        tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
+        tables.s_pad, tables.r_pad, tables.s_live, tables.r_live, variant,
+        tables.perm.data_ptr(), tables.grad.data_ptr(), tables.images.data_ptr(),
+        state.data_ptr(), out.data_ptr(), rad.data_ptr(),
+        win.data_ptr() if want_winners else None, m,
+        int(seed) & 0xFFFFFFFF, *bg, int(b0), int(n_bounces), float(t_min),
+        group, blocks, counter.data_ptr(), stream,
+    )
+    if rc != 0:
+        msg = lib.rtw_error_string(rc).decode()
+        raise RuntimeError(f"bounce kernel launch failed: CUDA error {rc} ({msg})")
+    return rad, out, win
+
+
 def trace_segment(tables: Tables, state, seed: int, background, b0: int,
-                  n_bounces: int, t_min: float = T_MIN, *, want_winners: bool = False):
+                  n_bounces: int, t_min: float = T_MIN, *, want_winners: bool = False,
+                  _group: int | None = None):
     """The bounce kernel (csrc/megakernel.cu) for CUDA tensors; the plain
     version for CPU tensors. Same contract as trace_segment_plain.
-    `trace_segment.launches` counts kernel launches of every variant;
-    `winners_launches`, `noise_launches`, `image_launches` and
-    `sky_launches` those of the launches with that variant compiled in."""
+
+    One launch of persistent blocks (the SM count times the blocks an SM
+    holds at this table size) that refill finished rays from a next-ray
+    counter: one int32 per (device, stream), cached here and zeroed by the
+    C entry on the launch stream. G lanes trace each ray, G from the lane
+    count, the bounces and the rows scanned by launch_shape (1 or 2 for a
+    full batch's short first segment, 8 for its depth-50 launch, up to 32
+    for small buffers); `_group` forces G (tests). `last_shape` is the
+    (G, blocks) of the last launch. `trace_segment.launches` counts kernel
+    launches of every variant; `winners_launches`, `noise_launches`,
+    `image_launches` and `sky_launches` those of the launches with that
+    variant compiled in."""
     if state.device.type == "cpu":
         return trace_segment_plain(tables, state, seed, background, b0,
                                    n_bounces, t_min, want_winners=want_winners)
@@ -601,27 +723,16 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     from rtweekend_tpu_torch.ops.cuda import build
 
     lib, _ = build.load()
-    m = state.shape[0]
-    rad = torch.empty((3, m), dtype=torch.float32, device=state.device)
-    out = torch.empty_like(state)
-    # the kernel writes every entry, -1 after a ray's death included
-    win = (torch.empty((n_bounces, m), dtype=torch.int32, device=state.device)
-           if want_winners else None)
-    variant = (int(tables.has_motion) | 2 * int(tables.has_noise)
-               | 4 * int(tables.has_image) | 8 * int(has_sky))
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    rc = lib.rtw_bounce_segment(
-        tables.coef.data_ptr(), tables.coef.shape[0], tables.coef.shape[1],
-        tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
-        tables.s_pad, tables.r_pad, variant,
-        tables.perm.data_ptr(), tables.grad.data_ptr(), tables.images.data_ptr(),
-        state.data_ptr(), out.data_ptr(), rad.data_ptr(),
-        win.data_ptr() if want_winners else None, m,
-        int(seed) & 0xFFFFFFFF, *bg, int(b0), int(n_bounces), float(t_min), stream,
-    )
-    if rc != 0:
-        msg = lib.rtw_error_string(rc).decode()
-        raise RuntimeError(f"bounce kernel launch failed: CUDA error {rc} ({msg})")
+    dev = state.device
+    variant = _variant(tables, has_sky)
+    group, blocks = launch_shape(
+        state.shape[0], torch.cuda.get_device_properties(dev).multi_processor_count,
+        _blocks_per_sm(lib, variant, want_winners, tables.coef.shape[0]),
+        2 * tables.s_live + 6 * tables.r_live, n_bounces, _group)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rad, out, win = _launch(lib, tables, state, seed, bg, variant, b0, n_bounces, t_min,
+                            want_winners, group, blocks, _counter(dev, stream), stream)
+    trace_segment.last_shape = (group, blocks)
     trace_segment.launches += 1
     trace_segment.noise_launches += tables.has_noise
     trace_segment.image_launches += tables.has_image
@@ -648,6 +759,7 @@ def launch_counts():
 
 
 reset_launch_counts()
+trace_segment.last_shape = None
 
 KERNELS = ("auto", "cuda", "torch")
 

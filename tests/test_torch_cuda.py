@@ -66,6 +66,28 @@ def mixed_scene(m):
     return b
 
 
+def tie_scene(m):
+    """A SceneBuilder of module m (the port's models.scene or the JAX
+    package's) with exact ties: a sphere duplicated in the same place and a
+    rect duplicated in the same place, each copy with its own color, over a
+    ground sphere. The copies have identical coefficient rows, so their t
+    are equal on every ray, and the lower index (the first copy) must win
+    (megakernel.py:576-581)."""
+    b = m.SceneBuilder()
+    ground = b.material(m.Diffuse(albedo=m.Solid((0.5, 0.5, 0.5))))
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, ground)
+    for color in ((0.8, 0.2, 0.2), (0.2, 0.8, 0.2)):
+        b.add_sphere((0.0, 2.0, 0.0), 2.0, b.material(m.Diffuse(albedo=m.Solid(color))))
+    for color in ((0.2, 0.2, 0.8), (0.8, 0.8, 0.2)):
+        b.add_rect("xy", -6.0, 6.0, 0.0, 5.0, -3.0, b.material(m.Diffuse(albedo=m.Solid(color))))
+    return b
+
+
+# indices of the second copies in tie_scene: sphere 2, and the second rect
+TIE_LOSERS = lambda s_pad: (2, s_pad + 1)  # noqa: E731
+TIE_WINNERS = lambda s_pad: (1, s_pad)  # noqa: E731
+
+
 # (scene, aspect, variant counter, means atol)
 KERNEL_CASES = {
     "final_scene": (16 / 9, None, 0.0),
@@ -232,3 +254,112 @@ def test_golden_train_step_on_card(dev):
         assert v.device.type == "cuda" and torch.isfinite(v).all(), k
     for k in ("c0", "radius", "color"):
         assert (p0[k] != p1[k]).any(), k
+
+
+def _every_group(tables, state, bg, b0, n_bounces):
+    """(radiance, state, winners) of a launch at each G, asserted bit-equal
+    across G; returns the G = 1 outputs."""
+    ref = None
+    for g in mk.GROUPS:
+        out = mk.trace_segment(tables, state, SEED, bg, b0, n_bounces, want_winners=True,
+                               _group=g)
+        assert mk.trace_segment.last_shape[0] == g
+        if ref is None:
+            ref = out
+            continue
+        for what, a, b in zip(("radiance", "state", "winners"), ref, out):
+            assert torch.equal(a, b), f"{what} at G={g} differs from G=1"
+    return ref
+
+
+@pytest.mark.parametrize("name", ["final_scene", "golden_scene"])
+def test_every_lane_group_bit_equal_on_card(dev, name):
+    """Every G (lanes a ray) gives the same radiance, state and winners bit
+    for bit: at 65,536 camera rays, depth 8, and at the last render
+    segment's shape (the survivors of 20 bounces compacted into 8,192
+    lanes, 30 bounces from bounce 20). The launch the wrapper shapes
+    itself gives them too, and the radiance-only launch the same radiance
+    and state."""
+    aspect = 16 / 9 if name == "final_scene" else 1.5
+    tables = mk.pack_scene(build_scene(name, device=dev))
+    bg = SCENE_DEFAULTS[name]["background"]
+    state = mk.init_state(*_rays(name, aspect, 65536, dev))
+    _, st20 = mk.trace_segment(tables, state, SEED, bg, 0, 20)
+    small, overflow = mk.compact(st20, (st20[:, mk.S_AL] > 0.5).sum(), 8192)
+    assert not overflow.item()
+    for st, b0, n_b in ((state, 0, 8), (small, 20, 30)):
+        ref = _every_group(tables, st, bg, b0, n_b)
+        auto = mk.trace_segment(tables, st, SEED, bg, b0, n_b, want_winners=True)
+        rad, out = mk.trace_segment(tables, st, SEED, bg, b0, n_b)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ref, auto))
+        assert torch.equal(rad, ref[0]) and torch.equal(out, ref[1])
+    # G = 1 for the camera rays' full buffer, more lanes a ray for the small one
+    mk.trace_segment(tables, small, SEED, bg, 20, 30)
+    assert mk.trace_segment.last_shape[0] > 1
+
+
+def test_ties_take_the_lower_index_on_card(dev):
+    """Exact ties (a duplicated sphere, a duplicated rect) go to the lower
+    index at every G, as in the plain version: the copies never win, and
+    the winners agree with the plain version's on the entries alive on
+    both sides."""
+    scene = tie_scene(port_scene).build(dev)
+    tables = mk.pack_scene(scene)
+    bg = (0.7, 0.8, 1.0)
+    state = mk.init_state(*_rays("two_perlin_spheres", 1.5, 8192, dev))
+    rad, _, win = _every_group(tables, state, bg, 0, 6)
+    _, _, want = mk.trace_segment_plain(tables, state, SEED, bg, 0, 6, want_winners=True)
+    torch.cuda.synchronize()
+    for lost, won in zip(TIE_LOSERS(tables.s_pad), TIE_WINNERS(tables.s_pad)):
+        assert not (win == lost).any() and not (want == lost).any()
+        assert (win[0] == won).sum() > 100   # the tied pair is in view
+    alive_k = _alive(mk.trace_segment, tables, state, bg, 6)
+    alive_p = _alive(mk.trace_segment_plain, tables, state, bg, 6)
+    live = alive_k & alive_p
+    assert torch.equal(win[0], want[0])
+    differ = (win[live] != want[live]).float().mean().item()
+    assert differ <= 0.005, differ
+    assert torch.isfinite(rad).all()
+
+
+def test_back_to_back_launches_reuse_the_counter_on_card(dev):
+    """Two launches in a row on one stream (the next-ray counter zeroed and
+    reused) give bit-equal outputs, and a launch on another stream too."""
+    tables = mk.pack_scene(build_scene("final_scene", device=dev))
+    bg = SCENE_DEFAULTS["final_scene"]["background"]
+    state = mk.init_state(*_rays("final_scene", 16 / 9, 32768, dev))
+    first = mk.trace_segment(tables, state, SEED, bg, 0, 5, want_winners=True)
+    second = mk.trace_segment(tables, state, SEED, bg, 0, 5, want_winners=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = mk.trace_segment(tables, state, SEED, bg, 0, 5, want_winners=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("rows", [1024, 100])
+def test_small_buffers_on_card(dev, rows):
+    """m = 1024 lanes, and m = 100, whose lanes even at 32 a ray are far
+    fewer than the persistent grid's threads: the wrapper takes 32 lanes a
+    ray and no more blocks than those lanes fill; every G gives the rows
+    of the 1024-lane launch bit for bit (each output depends only on its
+    own ray); and the 1024 lanes hold the kernel bars against the plain
+    version."""
+    tables = mk.pack_scene(build_scene("final_scene", device=dev))
+    bg = SCENE_DEFAULTS["final_scene"]["background"]
+    full = mk.init_state(*_rays("final_scene", 16 / 9, 1024, dev))
+    rad_full, st_full = mk.trace_segment(tables, full, SEED, bg, 0, 8)
+    state = full[:rows].contiguous()
+    rad, st, _ = _every_group(tables, state, bg, 0, 8)
+    mk.trace_segment(tables, state, SEED, bg, 0, 8)
+    g, blocks = mk.trace_segment.last_shape
+    assert g == 32 and blocks == -(-rows * 32 // mk.BLOCK)
+    want, _ = mk.trace_segment_plain(tables, full, SEED, bg, 0, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(rad, rad_full[:, :rows]) and torch.equal(st, st_full[:rows])
+    diverged = ((rad_full - want).abs() > 1e-3).float().mean().item()
+    assert diverged < 0.005, diverged
+    torch.testing.assert_close(rad_full.mean(1), want.mean(1), rtol=0.02, atol=0.0)
