@@ -52,7 +52,35 @@ Phases, each printed as one JSON line:
  12. train_golden  sharded_train_step on golden_scene at 600x400, 4 spp,
                depth 50, 2 steps (one block of 960,000 rays) under its own
                sky, with nonzero c0, radius and albedo gradients; then one
-               more step under torch.profiler.
+               more step under torch.profiler;
+ 13. eager     the eager integrator (ops/integrator.py, plain tensor ops)
+               against the CUDA kernel at 65,536 rays, depth 8, on the six
+               scenes of phase 2; then render_image(kernel="eager") of
+               final_scene at 1200x675, 1 spp, depth 50: wall, rays/s, peak
+               memory, channel means against the kernel's render;
+ 14. f64       float64 render_image (the eager integrator) of cornell_box
+               600x600 4 spp and final_scene 1200x675 1 spp, depth 50,
+               against the float32 kernel render (tests/test_f64.py's bars);
+ 15. adaptive  every scene's adaptive compaction schedule (render_image's)
+               and its CPU probe seconds; the scene's 16-spp render under
+               it and under the static schedule, in turns (A S S A):
+               bit-equal unless a schedule overflowed (then the recovery
+               bar), the batches each schedule overflows, launches and
+               mean wall of both;
+ 16. checkpoint  the CLI with --checkpoint in a subprocess, final_scene
+               1200x675 16 spp, killed after its first save, then run again
+               to the end: equal to an uninterrupted render_resumable;
+ 17. cli_options  the CLI with --adaptive-caps, --metrics and
+               --profile-dir on the card: the events and the trace file;
+ 18. train_eager  sharded_train_step(use_pallas=False) on golden_scene
+               600x400, 2 spp, depth 50: seconds by pass, peak memory,
+               nonzero c0, radius and albedo gradients, one more step under
+               torch.profiler; then at 60x40,
+               depth 8, its gradients against the kernel path's (the
+               replay of the kernel's winners) on the rays whose paths
+               agree, in float64 (relative L2 <= 1e-4; float32 reported).
+Every scene's schedule (its CPU probe) is computed after phase 1, before
+any timed render: host set-up cached per scene, like the kernel build.
 Kernel times are device time only: the launches are enqueued behind a
 device-side spin that outlasts the enqueueing (utils/timing.device_ms),
 and the host's time per call is reported beside them. The plain version
@@ -81,6 +109,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -94,6 +123,8 @@ GOLDEN_STEPS = 2
 GRAD_W, GRAD_H, GRAD_SPP, GRAD_DEPTH = 64, 36, 2, 8
 GOLDEN_GRAD_W, GOLDEN_GRAD_H = 60, 40
 SCENES_SPP = 16
+CKPT_SPP = 16            # the checkpointed render: 16 batches, a save every 4
+TRAIN_EAGER_SPP = 2
 LANE_TOL, LANE_FRAC, MEAN_RTOL, TEX_MEAN_ATOL = 1e-3, 0.005, 0.02, 5e-3
 REPLAY_FRAC, GRAD_RTOL, SAME_PATH_RTOL = 0.01, 1e-2, 1e-4
 # the kernel variant each added scene exercises, and its means atol
@@ -281,37 +312,10 @@ def rel_l2(a, b):
 
 
 def profile_fn(fn, **meta):
-    """fn() once under torch.profiler: device time by kernel, device busy
-    and idle share of the host-clock wall time. Reports "not measured"
-    when the profiler sees no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """fn() once under torch.profiler (utils/profiling.device_profile)."""
+    from rtweekend_tpu_torch.utils.profiling import device_profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    def self_dev_us(ev):
-        return getattr(ev, "self_device_time_total", None) or \
-            getattr(ev, "self_cuda_time_total", 0)
-
-    # device-side events only: a host op (aten::index_add_) also reports
-    # the device time of the kernels it launched
-    kern = sorted(((self_dev_us(ev), ev.key) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and self_dev_us(ev) > 0), reverse=True)
-    busy_ms = sum(us for us, _ in kern) / 1e3
-    if busy_ms == 0:
-        return dict(**meta, wall_ms=wall * 1e3,
-                    device_busy_ms="not measured", idle_share="not measured")
-    bounce_ms = sum(us for us, k in kern if "bounce_kernel" in k) / 1e3
-    return dict(**meta, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / (wall * 1e3), bounce_kernel_ms=bounce_ms,
-                n_kernel_names=len(kern),
-                top_kernels=[[k[:80], us / 1e3] for us, k in kern[:10]])
+    return device_profile(fn, **meta)
 
 
 def main() -> int:
@@ -335,6 +339,8 @@ def main() -> int:
     from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
     from rtweekend_tpu_torch.parallel import shard
     from rtweekend_tpu_torch.utils import image as image_mod
+    from rtweekend_tpu_torch import checkpoint, cli
+    from rtweekend_tpu_torch.ops import integrator
 
     for mod in list(sys.modules):
         check(not (mod == "jax" or mod.startswith("jax.") or mod == "rtweekend_tpu"
@@ -360,6 +366,15 @@ def main() -> int:
          cuda=torch.version.cuda, kernel_lib=os.path.relpath(built.path),
          build_s=built.seconds, earth_texture=earth_tex, ptxas=ptxas)
     print(smi, flush=True)
+
+    # every scene's compaction schedule (render_image's): its CPU probe is
+    # host set-up, cached per scene as the kernel build is, so it runs here,
+    # outside every timed render, and its seconds go into the adaptive phase
+    probe_s = {}
+    for name, p in SCENE_DEFAULTS.items():
+        t0 = time.perf_counter()
+        render_mod.adaptive_capacities(name, p["background"], MAIN_DEPTH)
+        probe_s[name] = time.perf_counter() - t0
 
     def rays(name, side, aspect, n):
         """n camera rays over a side x side pixel grid, samples 0, 1, ..."""
@@ -410,7 +425,8 @@ def main() -> int:
         state = mk.init_state(o, d, t, pid, sid)
         count = torch.tensor(n, device=dev)
         segs = []
-        for b0, n_b, out_cap in mk.schedule(n, MAIN_DEPTH, render_mod._capacities_for(bg)):
+        caps = render_mod.adaptive_capacities(name, bg, MAIN_DEPTH)   # render_image's
+        for b0, n_b, out_cap in mk.schedule(n, MAIN_DEPTH, caps):
             if out_cap < state.shape[0]:
                 state, ovf = mk.compact(state, count, out_cap)
                 check(not ovf.item(), f"{name} main-path schedule overflowed at bounce {b0}")
@@ -494,6 +510,7 @@ def main() -> int:
     # ---- 5. main path ----
     cfg = RenderConfig(scene="final_scene", width=MAIN_W, height=MAIN_H,
                        samples_per_pixel=MAIN_SPP, max_depth=MAIN_DEPTH)
+    main_caps = render_mod.adaptive_capacities("final_scene", bg, MAIN_DEPTH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mk.reset_launch_counts()
@@ -514,7 +531,7 @@ def main() -> int:
     emit("main", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=MAIN_SPP,
          depth=MAIN_DEPTH, wall_s=wall, primary_rays_per_s=MAIN_W * MAIN_H * MAIN_SPP / wall,
          launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         png=png, card=card)
+         capacities=main_caps, png=png, card=card)
 
     # ---- 6. where the main path's device time goes ----
     emit("profile", **profile_fn(lambda: render_mod.render_image(RenderConfig(
@@ -526,6 +543,7 @@ def main() -> int:
     for name, p in SCENE_DEFAULTS.items():
         cfg = RenderConfig(scene=name, width=p["width"], height=p["height"],
                            samples_per_pixel=SCENES_SPP, max_depth=MAIN_DEPTH)
+        caps = render_mod.adaptive_capacities(name, p["background"], MAIN_DEPTH)
         torch.cuda.synchronize()
         mk.reset_launch_counts()
         t0 = time.perf_counter()
@@ -549,8 +567,8 @@ def main() -> int:
         emit("scenes", scene=name, width=cfg.width, height=cfg.height, spp=SCENES_SPP,
              depth=MAIN_DEPTH, wall_s=wall,
              primary_rays_per_s=cfg.width * cfg.height * SCENES_SPP / wall,
-             mean_radiance=float(accum.mean().item()) / SCENES_SPP, **counts, png=png,
-             card=card)
+             mean_radiance=float(accum.mean().item()) / SCENES_SPP, **counts,
+             capacities=caps, png=png, card=card)
 
     # ---- 8. winners variant vs plain ----
     for name, depth in (("final_scene", 8), ("cornell_box", 8), ("golden_scene", 8),
@@ -753,6 +771,281 @@ def main() -> int:
           "golden_scene: a train launch was not the sky variant")
     variant_launches["sky"] += golden_counts["sky_launches"]
 
+    # ---- 13. the eager integrator against the kernel, then its render ----
+    for name, aspect, atol in cmp_scenes:
+        escene = build_scene(name, device=dev)
+        ebg = SCENE_DEFAULTS[name]["background"]
+        erays = rays(name, CMP_SIDE, aspect, CMP_SIDE * CMP_SIDE)
+        rk = mk.trace_paths(mk.pack_scene(escene), *erays, 42, ebg, 8, kernel="cuda")
+        mk.reset_launch_counts()
+        re_ = integrator.trace_paths(escene, *erays, 42, ebg, 8)
+        check(mk.launch_counts()["launches"] == 0, f"{name}: the eager path launched the kernel")
+        torch.cuda.synchronize()
+        res = compare(re_.t(), rk.t(), f"{name} eager vs kernel {CMP_SIDE ** 2} rays depth 8",
+                      mean_atol=atol)
+        emit("eager_vs_kernel", scene=name, rays=CMP_SIDE ** 2, depth=8, **res,
+             eager_ms=synced_ms(lambda: integrator.trace_paths(escene, *erays, 42, ebg, 8), 2),
+             card=card)
+    del escene, erays, rk, re_
+    torch.cuda.empty_cache()
+    cfg = RenderConfig(scene="final_scene", width=MAIN_W, height=MAIN_H, samples_per_pixel=1,
+                       max_depth=MAIN_DEPTH)
+    _, k_accum = render_mod.render_image(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, e_accum = render_mod.render_image(cfg, kernel="eager")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(mk.launch_counts()["launches"] == 0, "the eager render launched the kernel")
+    check(bool(torch.isfinite(e_accum).all()), "eager render: non-finite framebuffer")
+    em, km = e_accum.reshape(-1, 3).double().mean(0), k_accum.reshape(-1, 3).double().mean(0)
+    check(bool(((em - km).abs() <= MEAN_RTOL * km.abs()).all()),
+          f"eager render means {em.tolist()} vs kernel {km.tolist()}")
+    emit("eager", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=1, depth=MAIN_DEPTH,
+         wall_s=wall, primary_rays_per_s=MAIN_W * MAIN_H / wall,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), eager_means=em.tolist(),
+         kernel_means=km.tolist(), card=card)
+    del k_accum, e_accum
+    torch.cuda.empty_cache()
+
+    # ---- 14. float64 through the eager integrator, against float32 ----
+    cb = SCENE_DEFAULTS["cornell_box"]   # 600x600
+    for name, w, h, spp in (("cornell_box", cb["width"], cb["height"], 4),
+                            ("final_scene", MAIN_W, MAIN_H, 1)):
+        kw = dict(scene=name, width=w, height=h, samples_per_pixel=spp, max_depth=MAIN_DEPTH)
+        _, a32 = render_mod.render_image(RenderConfig(**kw))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, a64 = render_mod.render_image(RenderConfig(**kw, dtype="float64"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(a64.dtype == torch.float64, f"{name}: float64 render returned {a64.dtype}")
+        check(mk.launch_counts()["launches"] == 0, f"{name}: float64 launched the kernel")
+        check(bool(torch.isfinite(a64).all()) and a64.max().item() > 0.0,
+              f"{name}: float64 framebuffer not finite or black")
+        # tests/test_f64.py:48-58's bars
+        off = ((a32.double() - a64).abs() > 1e-3).double().mean().item()
+        rel = abs(a32.double().mean().item() - a64.mean().item()) / a64.mean().item()
+        check(off < 0.02, f"{name}: {off} of float32 entries off float64 by > 1e-3")
+        check(rel <= 5e-3, f"{name}: float32 mean off float64 by {rel}")
+        emit("f64", scene=name, width=w, height=h, spp=spp, depth=MAIN_DEPTH, wall_s=wall,
+             primary_rays_per_s=w * h * spp / wall,
+             peak_mem_bytes=torch.cuda.max_memory_allocated(), f32_off_frac=off,
+             f32_mean_rel=rel, card=card)
+        del a32, a64
+        torch.cuda.empty_cache()
+
+    # ---- 15. the adaptive schedule against the static one, every scene ----
+    def overflows(name, caps):
+        """Sample batches of the scene's 16-spp render whose compaction
+        overflows `caps` (render() then re-traces them uncompacted)."""
+        p = SCENE_DEFAULTS[name]
+        w, h = p["width"], p["height"]
+        tab = mk.pack_scene(build_scene(name, device=dev))
+        ocam = render_mod.camera_for_scene(name, w / h, dev)
+        batch = render_mod.batch_size(w * h, SCENES_SPP, 1 << 20)
+        flags = [render_mod.render_batch_compact(
+            tab, ocam, p["background"], 42, s0, torch.zeros((h, w, 3), device=dev), width=w,
+            height=h, n_samples=min(batch, SCENES_SPP - s0), max_depth=MAIN_DEPTH,
+            capacities=caps)[1] for s0 in range(0, SCENES_SPP, batch)]
+        return int(torch.stack(flags).sum().item())
+
+    for name, p in SCENE_DEFAULTS.items():
+        cfg = RenderConfig(scene=name, width=p["width"], height=p["height"],
+                           samples_per_pixel=SCENES_SPP, max_depth=MAIN_DEPTH)
+        static = render_mod._capacities_for(p["background"])
+        adaptive = render_mod.adaptive_capacities(name, p["background"], MAIN_DEPTH)
+        walls, sched_launches, fb = {"adaptive": [], "static": []}, {}, {}
+        for which in ("adaptive", "static", "static", "adaptive"):   # in turns
+            torch.cuda.synchronize()
+            mk.reset_launch_counts()
+            t0 = time.perf_counter()
+            # None: render_image's own schedule, the adaptive one
+            _, fb[which] = render_mod.render_image(
+                cfg, capacities=static if which == "static" else None)
+            torch.cuda.synchronize()
+            walls[which].append(time.perf_counter() - t0)
+            sched_launches[which] = mk.launch_counts()["launches"]
+        ovf = {"adaptive": overflows(name, adaptive), "static": overflows(name, static)}
+        bit_equal = bool(torch.equal(fb["static"], fb["adaptive"]))
+        # compaction is exact and a ray adds its radiance once, so the two
+        # are bit-equal; a recovered batch is accum - compacted + uncompacted,
+        # equal to rounding (tests/test_torch_render.py's recovery bar)
+        if ovf["adaptive"] == ovf["static"] == 0:
+            check(bit_equal, f"{name}: adaptive and static framebuffers not bit-equal")
+        else:
+            check(torch.allclose(fb["static"], fb["adaptive"], rtol=1e-5, atol=1e-6),
+                  f"{name}: adaptive and static framebuffers differ past the recovery bar")
+        emit("adaptive", scene=name, width=cfg.width, height=cfg.height, spp=SCENES_SPP,
+             depth=MAIN_DEPTH, adaptive=adaptive, static=static, probe_s=probe_s[name],
+             bit_equal=bit_equal, overflowed_batches=ovf,
+             launches_adaptive=sched_launches["adaptive"],
+             launches_static=sched_launches["static"],
+             wall_s_adaptive=sum(walls["adaptive"]) / 2, wall_s_static=sum(walls["static"]) / 2,
+             walls=walls, card=card)
+    del fb
+
+    # ---- 16. a checkpointed CLI render stopped after its first save, resumed ----
+    ckpt = os.path.join(OUT_DIR, "chip_smoke_final_scene.ckpt")
+    if os.path.exists(ckpt):
+        os.unlink(ckpt)
+    # one sample a batch (as at the default rays_per_chunk at 1200x675),
+    # so the first save comes after 4 of the 16
+    argv = [sys.executable, "-m", "rtweekend_tpu_torch.cli", "final_scene", "--width",
+            str(MAIN_W), "--height", str(MAIN_H), "--spp", str(CKPT_SPP), "--max-depth",
+            str(MAIN_DEPTH), "--rays-per-chunk",
+            str(MAIN_W * MAIN_H), "--checkpoint", ckpt, "-o",
+            os.path.join(OUT_DIR, "chip_smoke_ckpt.png")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        while not os.path.exists(ckpt) and proc.poll() is None:
+            time.sleep(0.002)
+        stopped = proc.poll() is None
+        proc.kill()
+    finally:
+        _, err = proc.communicate()
+    first_s = time.perf_counter() - t0
+    check(stopped and os.path.exists(ckpt),
+          f"checkpointed render ended before its first save: {err.decode()[-2000:]}")
+    saved = checkpoint.load(ckpt)
+    check(0 < saved.samples_done < CKPT_SPP,
+          f"first save holds {saved.samples_done} of {CKPT_SPP} samples")
+    t0 = time.perf_counter()
+    done = subprocess.run(argv, capture_output=True, text=True)
+    resume_s = time.perf_counter() - t0
+    check(done.returncode == 0, f"resumed render failed: {done.stderr[-2000:]}")
+    resumed = torch.from_numpy(checkpoint.load(ckpt).accum)
+    check(checkpoint.load(ckpt).samples_done == CKPT_SPP, "resumed render did not finish")
+    scene = build_scene("final_scene", device=dev)
+    cam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
+    ref_path = os.path.join(OUT_DIR, "chip_smoke_uninterrupted.ckpt")
+    if os.path.exists(ref_path):
+        os.unlink(ref_path)
+    mk.reset_launch_counts()
+    full = checkpoint.render_resumable(scene, cam, "final_scene", MAIN_W, MAIN_H, CKPT_SPP,
+                                       MAIN_DEPTH, SCENE_DEFAULTS["final_scene"]["background"],
+                                       42, ref_path, rays_per_chunk=MAIN_W * MAIN_H).cpu()
+    check(mk.launch_counts()["launches"] > 0, "the resumable render launched no kernel")
+    check(torch.allclose(resumed, full, rtol=1e-6, atol=1e-6),
+          "resumed render differs from the uninterrupted one")
+    emit("checkpoint", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=CKPT_SPP,
+         depth=MAIN_DEPTH, stopped_at_samples=saved.samples_done, first_run_s=first_s,
+         resume_run_s=resume_s, launches_uninterrupted=mk.launch_counts()["launches"],
+         bit_equal=bool(torch.equal(resumed, full)),
+         max_abs_diff=(resumed - full).abs().max().item(), card=card)
+
+    # ---- 17. the CLI's metrics and profiler trace on the card ----
+    mpath = os.path.join(OUT_DIR, "chip_smoke_metrics.jsonl")
+    pdir = os.path.join(OUT_DIR, "chip_smoke_profile")
+    if os.path.exists(mpath):
+        os.unlink(mpath)
+    shutil.rmtree(pdir, ignore_errors=True)
+    mk.reset_launch_counts()
+    check(cli.main(["cornell_box", "--spp", "4", "--adaptive-caps", "--metrics", mpath,
+                    "--profile-dir", pdir, "-o", os.path.join(OUT_DIR, "chip_smoke_cli.png")])
+          == 0, "CLI run failed")
+    cli_launches = mk.launch_counts()["launches"]
+    check(cli_launches > 0, "the CLI run launched no kernel")
+    with open(mpath) as f:
+        events = [json.loads(line) for line in f]
+    names = [e["event"] for e in events]
+    check(names[0] == "render_start" and names[-1] == "render_done"
+          and names.count("batch_submitted") >= 1, f"metrics events {names}")
+    check(events[0]["backend"] == dev.type and events[0]["use_pallas"] is True,
+          f"render_start {events[0]}")
+    traces = os.listdir(pdir)
+    check(len(traces) == 1 and os.path.getsize(os.path.join(pdir, traces[0])) > 0,
+          f"profiler traces {traces}")
+    with open(os.path.join(pdir, traces[0])) as f:
+        trace_events = json.load(f)["traceEvents"]
+    n_dev = sum(1 for e in trace_events if e.get("cat") == "kernel")
+    emit("cli_options", scene="cornell_box", events=names, render_done=events[-1],
+         launches=cli_launches, trace=traces[0], trace_events=len(trace_events),
+         trace_device_kernels=n_dev, card=card)
+
+    # ---- 18. the eager train step ----
+    tname = "golden_scene"
+    tp = SCENE_DEFAULTS[tname]
+    tscene = build_scene(tname, device=dev)
+    tcam = render_mod.camera_for_scene(tname, tp["width"] / tp["height"], dev)
+    target = shard.kernel_mean_image(tscene, tcam, tp["width"], tp["height"], TRAIN_EAGER_SPP,
+                                     MAIN_DEPTH, tp["background"], 42)
+    p0 = shard.extract_params(tscene)
+    tscene = shard.merge_params(tscene, dict(p0, color=p0["color"] * 0.8))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    tm = {}
+    t0 = time.perf_counter()
+    params, loss = shard.sharded_train_step(
+        tscene, tcam, target, tp["width"], tp["height"], TRAIN_EAGER_SPP, MAIN_DEPTH,
+        tp["background"], 42, lr=1.0, use_pallas=False, timings=tm)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    check(mk.launch_counts()["launches"] == 0, "the eager train step launched the kernel")
+    before = shard.extract_params(tscene)
+    grads = {k: before[k] - params[k] for k in params}   # lr = 1
+    check(bool(torch.isfinite(loss).item()), "eager train step: loss not finite")
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"eager train step: grad {k} not finite")
+    for k in ("c0", "radius", "color"):
+        check(grads[k].abs().sum().item() > 0, f"eager train step: zero {k} gradient")
+    emit("train_eager_step", scene=tname, width=tp["width"], height=tp["height"],
+         spp=TRAIN_EAGER_SPP, depth=MAIN_DEPTH, loss=loss.item(), wall_s=step_s, **tm,
+         rays_per_block=shard.eager_rays_per_chunk(tscene, 1 << 20),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         grad_l2={k: torch.linalg.norm(g.double()).item() for k, g in grads.items()},
+         card=card)
+    emit("profile_train_eager", **profile_fn(lambda: shard.sharded_train_step(
+        tscene, tcam, target, tp["width"], tp["height"], TRAIN_EAGER_SPP, MAIN_DEPTH,
+        tp["background"], 42, lr=1.0, use_pallas=False), what="one eager train step"),
+        card=card)
+    del params, grads, target
+    torch.cuda.empty_cache()
+    # its gradients against the kernel path's on the same paths, in float64
+    # (in float32 a path's gradient through glass and the r=1000 ground's
+    # coefficient rows is ill conditioned; the float32 numbers are reported)
+    rel, same_frac = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        gs = build_scene(tname, device=dev, dtype=dtype)
+        gcam = render_mod.camera_for_scene(tname, GOLDEN_GRAD_W / GOLDEN_GRAD_H, dev, dtype)
+        grays = render_mod._gen_batch_rays(gcam, 42, 0, width=GOLDEN_GRAD_W,
+                                           height=GOLDEN_GRAD_H, n_samples=GRAD_SPP)
+        kwin = vjp.kernel_winners(build_scene(tname, device=dev), *[
+            x.float() if x.is_floating_point() else x for x in grays], 42, tp["background"],
+            GRAD_DEPTH, kernel="cuda")[1]
+        _, ewin = integrator.path_decisions(gs, *grays, 42, GRAD_DEPTH)
+        same = (ewin == kwin).all(0)
+
+        def same_path_grads(trace):
+            prm = {k: v.detach().clone().requires_grad_(True)
+                   for k, v in shard.extract_params(gs).items()}
+            rad = trace(shard.merge_params(gs, prm))
+            sloss = (((rad - 0.5) ** 2).sum(1) * same).sum() / rad.shape[0]
+            return dict(zip(prm, torch.autograd.grad(sloss, list(prm.values()))))
+
+        ge = same_path_grads(lambda sc: integrator.trace_paths(
+            sc, *grays, 42, tp["background"], GRAD_DEPTH, remat=True))
+        gk = same_path_grads(lambda sc: trace_paths_replay_fast(
+            sc, *grays, 42, tp["background"], kwin))
+        rel[str(dtype).removeprefix("torch.")] = {k: rel_l2(ge[k], gk[k]) for k in ge}
+        same_frac[str(dtype).removeprefix("torch.")] = same.double().mean().item()
+        if dtype == torch.float64:
+            check(same.double().mean().item() >= 0.99, "eager vs kernel: paths diverged")
+            for k in ge:
+                check(bool(torch.isfinite(ge[k]).all()), f"eager grad {k} not finite")
+                check(rel["float64"][k] <= SAME_PATH_RTOL,
+                      f"eager vs kernel-path same-path grad {k}: {rel['float64'][k]}")
+    emit("train_eager_vs_kernel", scene=tname, size=f"{GOLDEN_GRAD_W}x{GOLDEN_GRAD_H}",
+         spp=GRAD_SPP, depth=GRAD_DEPTH, same_path_frac=same_frac,
+         rel_l2_same_path=rel, card=card)
+
     emit("total", seconds=time.perf_counter() - t_start)
 
     # ---- kernels line: per launch, averaged over the segments of one sample
@@ -788,13 +1081,17 @@ def main() -> int:
         "bound_by": "operations" if win_bnd["ops_ms"] >= win_bnd["bytes_ms"] else "bytes",
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("megakernel", launches, segs),
         winners_entry,
         entry("megakernel_noise", variant_launches["noise"], variant_segs["noise"]),
         entry("megakernel_image", variant_launches["image"], variant_segs["image"]),
         entry("megakernel_sky", variant_launches["sky"], variant_segs["sky"]),
-    ]}), flush=True)
+    ]
+    for k in kernels:
+        check(isinstance(k["launches"], int) and k["launches"] > 0,
+              f"{k['name']}: launches {k['launches']!r} is not a positive count")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,14 +1,18 @@
 """rtweekend_tpu_torch — the PyTorch/CUDA port of the rtweekend_tpu path tracer.
 
 The JAX package `rtweekend_tpu` stays the reference; this package
-re-implements its forward render and its one-device training path for an
-NVIDIA H100: host-side scene builders, the counter-RNG thin-lens camera,
-the bounce megakernel as a hand-written CUDA kernel (`csrc/megakernel.cu`,
-with a per-bounce winners variant) with a plain PyTorch version beside
-it, wavefront compaction without host syncs, tone map and PNG/PPM
-output, and the differentiable replay of kernel-decided paths under
-PyTorch autograd (`grad.py`, `parallel/shard.py`). It imports neither
-`jax` nor `rtweekend_tpu`.
+re-implements its one-device forward render and training path for an
+NVIDIA H100: host-side scene builders in float32 or float64, the
+counter-RNG thin-lens camera, the bounce megakernel as a hand-written
+CUDA kernel (`csrc/megakernel.cu`, with a per-bounce winners variant)
+with a plain PyTorch version beside it, wavefront compaction without
+host syncs under a measured compaction schedule, the eager integrator
+(closest-hit march, textures, scatter as plain tensor ops; the float64
+path), resumable checkpointed renders, JSON-lines metrics and profiler
+traces, tone map and PNG/PPM output, and the differentiable training
+path under PyTorch autograd: the replay of kernel-decided paths or the
+eager integrator end to end (`grad.py`, `parallel/shard.py`). It imports
+neither `jax` nor `rtweekend_tpu`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """

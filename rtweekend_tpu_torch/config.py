@@ -6,6 +6,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import torch
+
+# Float types a render may run in: float32 on every path, float64 on the
+# eager integrator only (the bounce kernel is float32).
+FLOAT_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch.float32 or torch.float64 from a name or a torch dtype."""
+    if isinstance(dtype, str):
+        if dtype not in FLOAT_DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(FLOAT_DTYPES)}, got {dtype!r}")
+        return FLOAT_DTYPES[dtype]
+    if dtype not in FLOAT_DTYPES.values():
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype!r}")
+    return dtype
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -15,9 +32,17 @@ class RenderConfig:
     samples_per_pixel: int = 200
     max_depth: int = 50
     seed: int = 42
-    # Rays traced per batch; bounds the size of the ray-state buffers.
+    # float32 on the card by default; float64 renders through the eager
+    # integrator, as a high-precision oracle for the float32 paths.
+    dtype: str = "float32"
+    # Rays traced per batch; bounds the size of the ray-state buffers and
+    # of the eager integrator's [rays, primitives] workspaces.
     rays_per_chunk: int = 1 << 20
     output: str = "out.png"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
 
 
 # Per-scene defaults mirroring reference src/main.zig:320-362.

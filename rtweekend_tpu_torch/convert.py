@@ -1,7 +1,7 @@
 """Carry a scene and its parameters across from the JAX package.
 
-`scene_from_numpy` takes the leaves of an `rtweekend_tpu` Scene,
-flattened to numpy by the caller and keyed "group.field" (e.g.
+`scene_from_numpy` takes the leaves of an `rtweekend_tpu` Scene (float32
+or float64), flattened to numpy by the caller and keyed "group.field" (e.g.
 "spheres.c0") or "field" for the top-level arrays (e.g. "perlin_px"),
 and returns the port's Scene. The static metadata the JAX pytree keeps
 outside its leaves is recomputed from the leaves themselves.
@@ -25,8 +25,13 @@ from rtweekend_tpu_torch.models.scene import (
 
 
 def scene_from_numpy(leaves: dict, device=None) -> Scene:
-    """The port's Scene from JAX-side leaves (see the module docstring)."""
+    """The port's Scene from JAX-side leaves (see the module docstring), in
+    their float type: float32, or float64 from a JAX scene built with
+    dtype=float64 under jax_enable_x64."""
     leaves = {k: np.asarray(v) for k, v in leaves.items()}
+    floats = {v.dtype for v in leaves.values() if v.dtype.kind == "f"}
+    if len(floats) != 1 or not floats <= {np.dtype(np.float32), np.dtype(np.float64)}:
+        raise TypeError(f"scene leaves must be all float32 or all float64, got {floats}")
     s_act = leaves["spheres.active"].astype(bool)
     ttype = leaves["textures.ttype"]
     meta = dict(

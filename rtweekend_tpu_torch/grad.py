@@ -10,12 +10,12 @@ sampling:
   metal absorption) carry no gradient: the estimator differentiates the
   smooth integrand along fixed paths (silhouette terms are not
   estimated, the usual detached trade-off);
-- the bounce kernel decides the paths (its winners output) and the
-  replay (ops/replay.py) differentiates them, checkpointed per bounce
-  (ops/cuda/vjp.trace_paths_fast).
-
-The JAX package's eager-integrator branch (use_pallas=False) is not
-ported: here the path is always kernel winners, then the replay.
+- kernel "auto", "cuda" or "torch": the bounce kernel decides the paths
+  (its winners output) and the replay (ops/replay.py) differentiates
+  them, checkpointed per bounce (ops/cuda/vjp.trace_paths_fast);
+- kernel "eager": the eager integrator (ops/integrator.trace_paths,
+  remat=True) is differentiated end to end, march included, in the
+  scene's dtype: the JAX package's use_pallas=False.
 """
 
 from __future__ import annotations
@@ -25,13 +25,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from rtweekend_tpu_torch.models.scene import Scene
+from rtweekend_tpu_torch.ops import integrator
 from rtweekend_tpu_torch.ops.camera import Camera, generate_rays
 from rtweekend_tpu_torch.ops.cuda.vjp import trace_paths_fast
-from rtweekend_tpu_torch.parallel.shard import (
-    _pick_sample_chunk,
-    extract_params,
-    merge_params,
-)
+from rtweekend_tpu_torch.parallel.shard import extract_params, merge_params
+from rtweekend_tpu_torch.render import batch_size, resolve_kernel
 
 
 def render_mean(scene: Scene, camera: Camera, background, seed: int, *, width: int,
@@ -40,18 +38,25 @@ def render_mean(scene: Scene, camera: Camera, background, seed: int, *, width: i
     """Differentiable mean-radiance framebuffer [H, W, 3] (row 0 = top) on
     the scene's device. Samples are traced in chunks of at most
     `rays_per_chunk` rays; autograd keeps each chunk's per-bounce carries
-    until the backward pass."""
+    until the backward pass. kernel: "auto", "cuda" or "torch" (kernel
+    winners, then the replay) or "eager" (the eager integrator; "auto"
+    picks it for a float64 scene)."""
+    kernel = resolve_kernel(kernel, scene.spheres.c0.dtype)
     dev = scene.device
     n_pix = width * height
-    chunk = _pick_sample_chunk(n_pix, spp, rays_per_chunk)
+    chunk = batch_size(n_pix, spp, rays_per_chunk)
     pixel_ids = torch.arange(n_pix, dtype=torch.int32, device=dev).repeat_interleave(chunk)
     sample_base = torch.arange(chunk, dtype=torch.int32, device=dev).repeat(n_pix)
     sums = 0.0
     for s0 in range(0, spp, chunk):
         sample_ids = sample_base + s0
         o, d, t = generate_rays(camera, width, height, pixel_ids, sample_ids, seed)
-        rad = trace_paths_fast(scene, o, d, t, pixel_ids, sample_ids, seed, background,
-                               max_depth, kernel=kernel)
+        if kernel == "eager":
+            rad = integrator.trace_paths(scene, o, d, t, pixel_ids, sample_ids, seed,
+                                         background, max_depth, remat=True)
+        else:
+            rad = trace_paths_fast(scene, o, d, t, pixel_ids, sample_ids, seed,
+                                   background, max_depth, kernel=kernel)
         sums = sums + rad.reshape(n_pix, chunk, 3).sum(dim=1)
     mean = sums / spp
     return torch.flip(mean.reshape(height, width, 3), [0])
@@ -102,8 +107,10 @@ def fit(scene: Scene, camera: Camera, target, background, *, width: int, height:
         loss.backward()
         with torch.no_grad():
             for k, p in params.items():
-                if not mask[k]:
-                    p.grad.zero_()
+                # a group the graph never reached (the eager path's geometry
+                # under a flat sky) gets a zero gradient, as under JAX
+                if p.grad is None or not mask[k]:
+                    p.grad = torch.zeros_like(p)
         opt.step()
         history.append(float(loss.detach()))
         if verbose and i % 10 == 0:

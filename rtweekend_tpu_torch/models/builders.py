@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from rtweekend_tpu_torch.device import resolve_device
 from rtweekend_tpu_torch.models.scene import (
@@ -224,11 +225,12 @@ SCENES = {
 }
 
 
-def build_scene(name: str, seed: int = 42, device=None):
-    """Build a registry scene on `device` (default: the card)."""
+def build_scene(name: str, seed: int = 42, device=None, dtype=torch.float32):
+    """Build a registry scene on `device` (default: the card) in `dtype`
+    (torch.float32 or torch.float64)."""
     dev = resolve_device(device)
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
     builder = SceneBuilder(perlin_seed=seed)
     SCENES[name](builder, np.random.default_rng(seed))
-    return builder.build(dev)
+    return builder.build(dev, dtype)

@@ -284,10 +284,11 @@ class SceneBuilder:
         self.add_rect("yz", y0, y1, z0, z1, x1, mat_id, **kw)
         self.add_rect("yz", y0, y1, z0, z1, x0, mat_id, **kw)
 
-    def build_numpy(self) -> Tuple[dict, dict]:
+    def build_numpy(self, dtype=np.float32) -> Tuple[dict, dict]:
         """Freeze to host arrays: (leaves keyed "group.field" or "field",
-        static metadata)."""
-        f32 = lambda x: np.asarray(x, dtype=np.float32)  # noqa: E731
+        static metadata). Float leaves are converted from the float64
+        host values to `dtype` (np.float32 or np.float64) once, here."""
+        flt = lambda x: np.asarray(x, dtype=dtype)  # noqa: E731
         i32 = lambda x: np.asarray(x, dtype=np.int32)  # noqa: E731
         leaves = {}
 
@@ -305,9 +306,9 @@ class SceneBuilder:
             t0[idx] = u0; t1[idx] = u1 if u1 != u0 else u0 + 1.0
             rad[idx] = r; smat[idx] = m; sact[idx] = True
         leaves.update({
-            "spheres.c0": f32(c0), "spheres.dc": f32(c1 - c0),
-            "spheres.time0": f32(t0), "spheres.inv_dt": f32(1.0 / (t1 - t0)),
-            "spheres.radius": f32(rad), "spheres.mat_id": i32(smat),
+            "spheres.c0": flt(c0), "spheres.dc": flt(c1 - c0),
+            "spheres.time0": flt(t0), "spheres.inv_dt": flt(1.0 / (t1 - t0)),
+            "spheres.radius": flt(rad), "spheres.mat_id": i32(smat),
             "spheres.active": sact,
         })
 
@@ -329,10 +330,10 @@ class SceneBuilder:
             rb0[idx] = b0; rb1[idx] = b1
             nrm[idx] = n_w; rmat[idx] = m; ract[idx] = True
         leaves.update({
-            "rects.wn": f32(wn), "rects.bn": f32(bn), "rects.wa": f32(wa),
-            "rects.ba": f32(ba), "rects.wb": f32(wb), "rects.bb": f32(bb),
-            "rects.k": f32(k), "rects.a0": f32(ra0), "rects.a1": f32(ra1),
-            "rects.b0": f32(rb0), "rects.b1": f32(rb1), "rects.normal": f32(nrm),
+            "rects.wn": flt(wn), "rects.bn": flt(bn), "rects.wa": flt(wa),
+            "rects.ba": flt(ba), "rects.wb": flt(wb), "rects.bb": flt(bb),
+            "rects.k": flt(k), "rects.a0": flt(ra0), "rects.a1": flt(ra1),
+            "rects.b0": flt(rb0), "rects.b1": flt(rb1), "rects.normal": flt(nrm),
             "rects.mat_id": i32(rmat), "rects.active": ract,
         })
 
@@ -368,7 +369,7 @@ class SceneBuilder:
                 raise TypeError(m)
         leaves.update({
             "materials.mtype": i32(mtype), "materials.tex_id": i32(mtex),
-            "materials.fuzz": f32(fuzz), "materials.ior": f32(ior),
+            "materials.fuzz": flt(fuzz), "materials.ior": flt(ior),
         })
 
         nt = max(1, len(tex_descs))
@@ -389,8 +390,8 @@ class SceneBuilder:
             else:
                 raise TypeError(t)
         leaves.update({
-            "textures.ttype": i32(ttype), "textures.color": f32(color),
-            "textures.color2": f32(color2), "textures.scale": f32(scale),
+            "textures.ttype": i32(ttype), "textures.color": flt(color),
+            "textures.color2": flt(color2), "textures.scale": flt(scale),
             "textures.image_id": i32(image_id),
         })
 
@@ -425,7 +426,7 @@ class SceneBuilder:
         flat = np.concatenate(flats) if flats else np.zeros(1, dtype=np.uint32)
         flat = np.concatenate([flat, np.zeros((-flat.size) % 128, dtype=np.uint32)])
 
-        grad, px, py, pz = perlin_mod.make_tables(self.perlin_seed, np.float32)
+        grad, px, py, pz = perlin_mod.make_tables(self.perlin_seed, dtype)
         leaves.update({
             "perlin_grad": grad, "perlin_px": px, "perlin_py": py,
             "perlin_pz": pz, "images": atlas, "image_h": ih, "image_w": iw,
@@ -442,10 +443,16 @@ class SceneBuilder:
         )
         return leaves, meta
 
-    def build(self, device) -> Scene:
-        """Freeze on the host, then move every array to `device` once."""
-        leaves, meta = self.build_numpy()
+    def build(self, device, dtype=torch.float32) -> Scene:
+        """Freeze on the host in `dtype` (torch.float32 or torch.float64),
+        then move every array to `device` once."""
+        leaves, meta = self.build_numpy(numpy_dtype(dtype))
         return scene_from_leaves(leaves, meta, device)
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy float type of a torch float type."""
+    return np.dtype(str(dtype).removeprefix("torch."))
 
 
 def scene_from_leaves(leaves: dict, meta: dict, device) -> Scene:

@@ -1,7 +1,7 @@
 """Thin-lens camera with a motion-blur shutter (reference src/main.zig:40-101).
 
 `make_camera` is the reference's Camera.init, computed on the host in
-numpy float32 with the JAX package's op sequence; `generate_rays` is the
+numpy (float32 or float64) with the JAX package's op sequence; `generate_rays` is the
 batched getRay plus per-sample pixel jitter, with counter-RNG draws.
 """
 
@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from rtweekend_tpu_torch.models.scene import numpy_dtype
 from rtweekend_tpu_torch.utils import rng as rng_mod
 
 
@@ -33,13 +34,14 @@ class Camera:
 def make_camera(
     look_from, look_at, vup, vfov_deg: float, aspect_ratio: float,
     aperture: float, focus_dist: float, time0: float = 0.0, time1: float = 1.0,
-    *, device,
+    *, device, dtype=torch.float32,
 ) -> Camera:
-    """Camera.init (reference src/main.zig:52-89), formula for formula."""
-    f32 = np.float32
-    look_from = np.asarray(look_from, f32)
-    look_at = np.asarray(look_at, f32)
-    vup = np.asarray(vup, f32)
+    """Camera.init (reference src/main.zig:52-89), formula for formula, in
+    `dtype` (torch.float32 or torch.float64)."""
+    ft = numpy_dtype(dtype).type
+    look_from = np.asarray(look_from, ft)
+    look_at = np.asarray(look_at, ft)
+    vup = np.asarray(vup, ft)
 
     theta = math.radians(vfov_deg)
     h = math.tan(theta / 2.0)
@@ -48,23 +50,23 @@ def make_camera(
 
     def _normalized(x):
         # zero-guarded x * (1/sqrt(|x|^2)) (vec.zig:33-40)
-        ns = f32(x[0] * x[0] + x[1] * x[1] + x[2] * x[2])
+        ns = ft(x[0] * x[0] + x[1] * x[1] + x[2] * x[2])
         if ns == 0.0:
             return x
-        return (x * (f32(1.0) / np.sqrt(ns))).astype(f32)
+        return (x * (ft(1.0) / np.sqrt(ns))).astype(ft)
 
     w = _normalized(look_from - look_at)
-    u = _normalized(np.cross(vup, w).astype(f32))
-    v = np.cross(w, u).astype(f32)
+    u = _normalized(np.cross(vup, w).astype(ft))
+    v = np.cross(w, u).astype(ft)
 
     origin = look_from
-    horizontal = (u * f32(viewport_width * focus_dist)).astype(f32)
-    vertical = (v * f32(viewport_height * focus_dist)).astype(f32)
+    horizontal = (u * ft(viewport_width * focus_dist)).astype(ft)
+    vertical = (v * ft(viewport_height * focus_dist)).astype(ft)
     lower_left = (
-        origin - horizontal / f32(2.0) - vertical / f32(2.0) - w * f32(focus_dist)
-    ).astype(f32)
+        origin - horizontal / ft(2.0) - vertical / ft(2.0) - w * ft(focus_dist)
+    ).astype(ft)
 
-    t = lambda x: torch.as_tensor(np.asarray(x, f32), device=device)  # noqa: E731
+    t = lambda x: torch.as_tensor(np.asarray(x, ft), device=device)  # noqa: E731
     return Camera(
         origin=t(origin), horizontal=t(horizontal), vertical=t(vertical),
         lower_left=t(lower_left), u=t(u), v=t(v), w=t(w),

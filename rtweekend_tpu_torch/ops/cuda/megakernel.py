@@ -117,6 +117,9 @@ class Tables:
 
 def pack_scene(scene: Scene) -> Tables:
     sp, rc = scene.spheres, scene.rects
+    if sp.c0.dtype != torch.float32:
+        raise TypeError(f"the bounce kernel is float32 only; got a {sp.c0.dtype} scene "
+                        "(float64 renders run on the eager integrator)")
     mats, tex = scene.materials, scene.textures
     s_pad = sp.radius.shape[0]
     r_pad = rc.k.shape[0]

@@ -12,34 +12,25 @@ respect to the scene's float leaves, the rays and the background. The
 estimator is detached sampling (see rtweekend_tpu_torch/grad.py): the
 discrete decisions carry no gradient.
 
-The formulas are the JAX replay's, formula for formula, including every
-guard that keeps a gradient finite through an unselected `where` branch
+The winner's t and normal are the JAX replay's formulas, with every guard
+that keeps a gradient finite through an unselected `where` branch
 (0 * inf = NaN): the safe radius of rects, the dn != 0 guard and the
-t_eff of misses, sqrt and rsqrt of clamped arguments. Minimum and
-maximum are torch.minimum/maximum, whose gradient splits at a tie as
-JAX's does.
+t_eff of misses. The texture, the scatter and the accumulation are the
+eager integrator's (ops/textures.py, ops/scatter.py,
+integrator.accumulate), applied to the winner's packed rows.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from rtweekend_tpu_torch.models.scene import (
-    MAT_DIELECTRIC,
-    MAT_LIGHT,
-    MAT_METAL,
-    TEX_CHECKER,
-    TEX_IMAGE,
-    TEX_NOISE,
-    Scene,
-)
+from rtweekend_tpu_torch.models.scene import Scene
 from rtweekend_tpu_torch.ops.coeffs import BIG, T_MIN, quadratic_t
-from rtweekend_tpu_torch.ops.integrator import sky_color
-from rtweekend_tpu_torch.utils import perlin as perlin_mod
-from rtweekend_tpu_torch.utils import rng as rng_mod
+from rtweekend_tpu_torch.ops.integrator import accumulate
+from rtweekend_tpu_torch.ops.intersect import Hit, sphere_uv
+from rtweekend_tpu_torch.ops.scatter import Surface, scatter
+from rtweekend_tpu_torch.ops.textures import TextureRows
 
 # Float-table columns [P, 34], spheres then rects (replay.py:53-68):
 (
@@ -58,8 +49,6 @@ from rtweekend_tpu_torch.utils import rng as rng_mod
     _TSCALE,                 # noise scale
 ) = range(34)
 _MTYPE, _TTYPE, _IMG = range(3)
-
-_NEAR_ZERO = 1e-8
 
 
 def replay_tables(scene: Scene):
@@ -123,7 +112,6 @@ def _bounce(scene: Scene, attr_f, attr_i, times, pixel_ids, sample_ids, seed: in
             o, d, throughput, radiance, alive, winner):
     """One replayed bounce (replay.py:164-336); returns the new carry."""
     n_s = scene.spheres.radius.shape[0]
-    dtype = o.dtype
 
     kernel_hit = winner >= 0
     idx = torch.where(kernel_hit, winner, 0).long()
@@ -161,105 +149,26 @@ def _bounce(scene: Scene, attr_f, attr_i, times, pixel_ids, sample_ids, seed: in
     # ---- normal (front-face flipped) ----
     outward_sph = (p - center) / rad_safe[:, None]
     outward = torch.where(is_s[:, None], outward_sph, af[:, _NX:_NZ + 1])
-    d_dot_n = torch.sum(outward * d, dim=-1)
-    front = d_dot_n < 0.0
-    sgn = torch.where(front, 1.0, -1.0)
-    normal = outward * sgn[:, None]
+    front = torch.sum(outward * d, dim=-1) < 0.0
+    normal = outward * torch.where(front, 1.0, -1.0)[:, None]
 
-    # ---- RNG: the same streams as the bounce kernel ----
-    stream_a = rng_mod.BOUNCE_STREAM0 + 2 * bounce_idx
-    u_b = rng_mod.uniform4(seed, pixel_ids, sample_ids, stream_a + 1, dtype)
-    unit_vec = rng_mod.unit_vector(seed, pixel_ids, sample_ids, stream_a, dtype)
-    sphere_pt = unit_vec * rng_mod.cbrt(u_b[:, 0])[:, None]
-    u_choice = u_b[:, 1]
-
-    # ---- texture at the hit (texture.zig:46-145) ----
-    ttype = ai[:, _TTYPE]
-    tex_val = af[:, _CR:_CB + 1]
-    if scene.has_checker:
-        sines = torch.sin(10.0 * p[:, 0]) * torch.sin(10.0 * p[:, 1]) * torch.sin(10.0 * p[:, 2])
-        checker = torch.where((sines < 0.0)[:, None], af[:, _C2R:_C2B + 1], tex_val)
-        tex_val = torch.where((ttype == TEX_CHECKER)[:, None], checker, tex_val)
-    if scene.has_noise:
-        turbv = perlin_mod.turb(scene.perlin_grad, scene.perlin_px, scene.perlin_py,
-                                scene.perlin_pz, p, depth=7)
-        gray = 0.5 * (1.0 + torch.sin(af[:, _TSCALE] * p[:, 2] + 10.0 * turbv))
-        tex_val = torch.where((ttype == TEX_NOISE)[:, None], gray[:, None], tex_val)
+    # ---- uv, read by the image texture only ----
+    u = v = None
     if scene.has_image:
-        # sphere uv (getSphereUv, hittable.zig:145-150) / rect affine uv
-        at_pole = (torch.abs(outward[:, 2]) + torch.abs(outward[:, 0])) < 1e-12
-        phi = torch.atan2(
-            -torch.where(at_pole, 0.0, outward[:, 2]),
-            torch.where(at_pole, 1.0, outward[:, 0]),
-        ) + math.pi
-        theta = torch.acos(torch.clamp(-outward[:, 1], -1.0 + 1e-7, 1.0 - 1e-7))
-        u_rect = torch.sum(p * af[:, _UWX:_UWZ + 1], dim=-1) + af[:, _UC]
-        v_rect = torch.sum(p * af[:, _VWX:_VWZ + 1], dim=-1) + af[:, _VC]
-        u = torch.where(is_s, phi / (2.0 * math.pi), u_rect)
-        v = torch.where(is_s, theta / math.pi, v_rect)
-        img_id = ai[:, _IMG].long()
-        w_i, h_i = scene.image_w[img_id], scene.image_h[img_id]
-        uu = torch.clamp(u, 0.0, 1.0)
-        vv = 1.0 - torch.clamp(v, 0.0, 1.0)
-        i_ = torch.minimum((uu * w_i.to(dtype)).to(torch.int32), w_i - 1).long()
-        j_ = torch.minimum((vv * h_i.to(dtype)).to(torch.int32), h_i - 1).long()
-        texel = scene.images[img_id, j_, i_].to(dtype)
-        rgb = texel[:, :3] / 255.0
-        ocean = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=o.device)
-        img_col = torch.where((texel[:, 3] == 0.0)[:, None], ocean[None, :], rgb)
-        tex_val = torch.where((ttype == TEX_IMAGE)[:, None], img_col, tex_val)
+        u_sph, v_sph = sphere_uv(outward)
+        u = torch.where(is_s, u_sph, torch.sum(p * af[:, _UWX:_UWZ + 1], dim=-1) + af[:, _UC])
+        v = torch.where(is_s, v_sph, torch.sum(p * af[:, _VWX:_VWZ + 1], dim=-1) + af[:, _VC])
 
-    # ---- scatter (material.zig:41-110) ----
-    diff_dir = normal + unit_vec
-    deg = torch.sum(torch.abs(diff_dir) < _NEAR_ZERO, dim=-1) == 3
-    diff_dir = torch.where(deg[:, None], normal, diff_dir)
-
-    d_sq = torch.sum(d * d, dim=-1)
-    unit_in = d * torch.rsqrt(torch.where(d_sq == 0.0, 1.0, d_sq))[:, None]
-    u_dot_n = torch.sum(unit_in * normal, dim=-1)
-    reflected = unit_in - 2.0 * u_dot_n[:, None] * normal
-    metal_dir = reflected + af[:, _FUZZ][:, None] * sphere_pt
-    metal_alive = torch.sum(reflected * normal, dim=-1) > 0.0
-
-    one = torch.ones((), dtype=dtype, device=o.device)
-    ior = af[:, _IOR]
-    ratio = torch.where(front, 1.0 / ior, ior)
-    cos_theta = torch.minimum(-u_dot_n, one)
-    sin_theta = torch.sqrt(torch.maximum(1.0 - cos_theta * cos_theta, 1e-20 * one))
-    can_refract = ratio * sin_theta <= 1.0
-    r0 = (1.0 - ratio) / (1.0 + ratio)
-    r0 = r0 * r0
-    one_c = 1.0 - cos_theta
-    one_c2 = one_c * one_c
-    reflectance = r0 + (1.0 - r0) * (one_c2 * one_c2 * one_c)   # (1-cos)^5
-    do_refract = can_refract & (reflectance < u_choice)
-    perp = ratio[:, None] * (unit_in + cos_theta[:, None] * normal)
-    perp_sq = torch.sum(perp * perp, dim=-1)
-    par = -torch.sqrt(torch.maximum(torch.abs(1.0 - perp_sq), 1e-12 * one))
-    refr_dir = perp + par[:, None] * normal
-    diel_dir = torch.where(do_refract[:, None], refr_dir, reflected)
-
-    mtype = ai[:, _MTYPE]
-    is_metal = mtype == MAT_METAL
-    is_diel = mtype == MAT_DIELECTRIC
-    is_light = mtype == MAT_LIGHT
-    direction = torch.where(is_metal[:, None], metal_dir, diff_dir)
-    direction = torch.where(is_diel[:, None], diel_dir, direction)
-    attenuation = torch.where(is_diel[:, None], torch.ones_like(tex_val), tex_val)
-    emitted = torch.where(is_light[:, None], tex_val, torch.zeros_like(tex_val))
-    sc_alive = torch.where(is_metal, metal_alive, torch.ones_like(is_metal)) & ~is_light
-
-    # ---- accumulate (main.zig:110-121 + gradient sky) ----
-    hit_live = alive & hit
-    miss_live = alive & ~hit
-    radiance = radiance + torch.where(hit_live[:, None], throughput * emitted, 0.0)
-    radiance = radiance + torch.where(
-        miss_live[:, None], throughput * sky_color(background, d), 0.0)
-    new_alive = hit_live & sc_alive
-    throughput = torch.where(new_alive[:, None], throughput * attenuation, throughput)
-    o = torch.where(new_alive[:, None], p, o)
-    d = torch.where(new_alive[:, None], direction, d)
-    return o, d, throughput, radiance, new_alive
+    # ---- scatter and accumulate: the eager integrator's, on the winner's rows ----
+    hit_rec = Hit(t=t_best, hit=hit, p=p, normal=normal, front_face=front, u=u, v=v,
+                  mat_id=None)
+    surface = Surface(
+        mtype=ai[:, _MTYPE], fuzz=af[:, _FUZZ], ior=af[:, _IOR],
+        tex=TextureRows(ttype=ai[:, _TTYPE], color=af[:, _CR:_CB + 1],
+                        color2=af[:, _C2R:_C2B + 1], scale=af[:, _TSCALE],
+                        image_id=ai[:, _IMG]))
+    sc = scatter(scene, seed, pixel_ids, sample_ids, bounce_idx, d, hit_rec, surface)
+    return accumulate(background, o, d, hit_rec, sc, throughput, radiance, alive)
 
 
 def trace_paths_replay_fast(scene: Scene, origins, dirs, times, pixel_ids, sample_ids,

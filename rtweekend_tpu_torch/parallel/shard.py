@@ -14,9 +14,12 @@
   the blocks, so only one block's winners [max_depth, n_pix * block]
   exist at a time.
 
-Then one SGD step. The JAX package's mesh (tiles x samples, psum'd
-grads) waits for ROADMAP Queue 1 #11, its eager-integrator branch
-(use_pallas=False) for Queue 1 #8.
+Then one SGD step. With use_pallas=False the eager integrator takes the
+kernel's place in both passes (the JAX package's use_pallas=False
+branch, in the scene's dtype): pass 1 traces the mean image without a
+graph, pass 2 differentiates each sample block's eager trace end to end
+with per-bounce checkpointing. The JAX package's mesh (tiles x samples,
+psum'd grads) waits for ROADMAP Queue 1 #11.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ import time
 import torch
 
 from rtweekend_tpu_torch.models.scene import Scene
+from rtweekend_tpu_torch.ops import integrator
 from rtweekend_tpu_torch.ops.camera import Camera, generate_rays
 from rtweekend_tpu_torch.ops.cuda.megakernel import pack_scene, trace_paths
 from rtweekend_tpu_torch.ops.cuda.vjp import host_background
 from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
+from rtweekend_tpu_torch.render import batch_size
 
 
 def extract_params(scene: Scene):
@@ -61,22 +66,13 @@ def _cross_ids(pixel_ids, sample_ids):
     return pids, sids
 
 
-def _pick_sample_chunk(n_pix, n_smp, rays_per_chunk):
-    """Largest sample count dividing n_smp with n_pix * chunk rays within
-    rays_per_chunk (at least 1)."""
-    chunk = max(1, min(n_smp, rays_per_chunk // max(n_pix, 1)))
-    while chunk > 1 and n_smp % chunk:
-        chunk -= 1
-    return chunk
-
-
 def _sample_blocks(camera, width, height, samples_per_pixel, seed, rays_per_chunk, dev):
     """(block size, block starts, block_rays): block_rays(s0) makes the
     rays (origins, dirs, times, pixel_ids, sample_ids) of every pixel with
     samples s0 .. s0 + blk - 1, pixel-major."""
     pixel_ids = torch.arange(width * height, dtype=torch.int32, device=dev)
     sample_ids = torch.arange(samples_per_pixel, dtype=torch.int32, device=dev)
-    blk = _pick_sample_chunk(width * height, samples_per_pixel, rays_per_chunk)
+    blk = batch_size(width * height, samples_per_pixel, rays_per_chunk)
 
     def block_rays(s0):
         pids, sids = _cross_ids(pixel_ids, sample_ids[s0:s0 + blk])
@@ -90,20 +86,42 @@ def kernel_mean_image(scene: Scene, camera: Camera, width: int, height: int,
                       samples_per_pixel: int, max_depth: int, background, seed: int, *,
                       kernel: str = "auto", rays_per_chunk: int = 1 << 20):
     """The spp-mean radiance [H, W, 3] (row 0 = top) from the bounce
-    kernel's own radiance, one launch per sample block of at most
-    `rays_per_chunk` rays: pass 1 of the train step."""
+    kernel's own radiance (kernel "auto", "cuda" or "torch"), one launch
+    per sample block of at most `rays_per_chunk` rays, or from the eager
+    integrator (kernel "eager"): pass 1 of the train step."""
     seed = int(seed) & 0xFFFFFFFF
     dev = scene.device
     n_pix = width * height
     blk, starts, block_rays = _sample_blocks(camera, width, height, samples_per_pixel,
                                              seed, rays_per_chunk, dev)
-    tables = pack_scene(scene)
-    sums = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    tables = None if kernel == "eager" else pack_scene(scene)
+    sums = torch.zeros((n_pix, 3), dtype=scene.spheres.c0.dtype, device=dev)
     for s0 in starts:
-        rad = trace_paths(tables, *block_rays(s0), seed, host_background(background), max_depth,
-                          kernel=kernel)
+        if tables is None:
+            rad = integrator.trace_paths(scene, *block_rays(s0), seed, background, max_depth)
+        else:
+            rad = trace_paths(tables, *block_rays(s0), seed, host_background(background),
+                              max_depth, kernel=kernel)
         sums += rad.reshape(n_pix, blk, 3).sum(dim=1)
     return torch.flip((sums / samples_per_pixel).reshape(height, width, 3), [0])
+
+
+# [rays, primitives] tensors that one bounce of the eager integrator keeps
+# for its backward pass while autograd recomputes it (candidate roots,
+# masks and the concatenated t), with room for the temporaries beside them
+EAGER_WORKSPACES = 16
+
+
+def eager_rays_per_chunk(scene: Scene, rays_per_chunk: int) -> int:
+    """rays_per_chunk, lowered on a card so that one bounce's backward
+    workspaces fit in half of the device memory free now."""
+    dev = scene.device
+    if dev.type != "cuda":
+        return rays_per_chunk
+    free, _ = torch.cuda.mem_get_info(dev)
+    prims = scene.spheres.radius.shape[0] + scene.rects.k.shape[0]
+    per_ray = prims * scene.spheres.c0.element_size() * EAGER_WORKSPACES
+    return max(1, min(rays_per_chunk, free // 2 // per_ray))
 
 
 def _sync(dev):
@@ -127,26 +145,33 @@ def sharded_train_step(scene: Scene, camera: Camera, target, width: int, height:
     taken at the kernel's mean image).
 
     kernel: "auto", "cuda" or "torch", as in render(). use_pallas=False
-    (the JAX package's eager integrator) is not ported. If `timings` is a
-    dict, the device is synchronized between phases and it receives the
-    seconds of pass 1 (`pass1_s`), of the winners launches (`winners_s`)
-    and of the replay forward + backward (`replay_s`)."""
+    runs the eager integrator in both passes instead, in the scene's dtype,
+    with the sample blocks lowered to what the card's free memory holds
+    (eager_rays_per_chunk); kernel is then unused. The default differs
+    from the JAX package's (use_pallas=False): the port trains through
+    the kernel path on the card. If `timings` is a dict, the device is
+    synchronized between phases and it receives the seconds of pass 1
+    (`pass1_s`) and, on the kernel path, of the winners launches
+    (`winners_s`) and of the replay forward + backward (`replay_s`), on
+    the eager path of the eager forward + backward (`pass2_s`)."""
     if mesh is not None:
         raise NotImplementedError(
             "multi-device train step: ROADMAP Queue 1 #11 (pass mesh=None)")
-    if not use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False needs the eager integrator: ROADMAP Queue 1 #8")
     dev = scene.device
+    dtype = scene.spheres.c0.dtype
     seed = int(seed) & 0xFFFFFFFF
     n_pix = width * height
+    if not use_pallas:
+        kernel = "eager"
+        rays_per_chunk = eager_rays_per_chunk(scene, rays_per_chunk)
 
     def flat(img):  # framebuffer orientation -> pixel-id order
         return torch.flip(img, [0]).reshape(n_pix, 3)
 
-    target_flat = flat(torch.as_tensor(target, dtype=torch.float32, device=dev))
+    target_flat = flat(torch.as_tensor(target, dtype=dtype, device=dev))
     params = {k: v.detach().requires_grad_(True) for k, v in extract_params(scene).items()}
-    clock = {"pass1_s": 0.0, "winners_s": 0.0, "replay_s": 0.0}
+    clock = ({"pass1_s": 0.0, "winners_s": 0.0, "replay_s": 0.0} if use_pallas
+             else {"pass1_s": 0.0, "pass2_s": 0.0})
 
     def tick(key, t0):
         if timings is not None:
@@ -157,7 +182,7 @@ def sharded_train_step(scene: Scene, camera: Camera, target, width: int, height:
     if timings is not None:
         _sync(dev)
     t0 = time.perf_counter()
-    # ---- pass 1: loss and cotangent from the kernel's own radiance ----
+    # ---- pass 1: loss and cotangent from the tracer's own radiance ----
     mean = flat(kernel_mean_image(scene, camera, width, height, samples_per_pixel,
                                   max_depth, background, seed, kernel=kernel,
                                   rays_per_chunk=rays_per_chunk))
@@ -166,26 +191,38 @@ def sharded_train_step(scene: Scene, camera: Camera, target, width: int, height:
     cot = 2.0 * err / (n_pix * 3)
     t0 = tick("pass1_s", t0)
 
-    # ---- pass 2: per block, kernel winners, then the replay's VJP ----
+    # ---- pass 2: per block, the VJP of the block's radiance: the replay
+    # of the kernel's winners, or the eager trace itself ----
     blk, starts, block_rays = _sample_blocks(camera, width, height, samples_per_pixel,
                                              seed, rays_per_chunk, dev)
-    with torch.no_grad():
-        tables = pack_scene(scene)
+    if use_pallas:
+        with torch.no_grad():
+            tables = pack_scene(scene)
     grads = {k: torch.zeros_like(v) for k, v in params.items()}
     for s0 in starts:
         with torch.no_grad():
             o, d, t, pids, sids = block_rays(s0)
-            _, win = trace_paths(tables, o, d, t, pids, sids, seed,
-                                 host_background(background), max_depth, kernel=kernel,
-                                 return_winners=True)
-        t0 = tick("winners_s", t0)
-        rad = trace_paths_replay_fast(merge_params(scene, params), o, d, t, pids, sids,
-                                      seed, background, win)
+        if use_pallas:
+            with torch.no_grad():
+                _, win = trace_paths(tables, o, d, t, pids, sids, seed,
+                                     host_background(background), max_depth, kernel=kernel,
+                                     return_winners=True)
+            t0 = tick("winners_s", t0)
+            rad = trace_paths_replay_fast(merge_params(scene, params), o, d, t, pids, sids,
+                                          seed, background, win)
+        else:
+            rad = integrator.trace_paths(merge_params(scene, params), o, d, t, pids, sids,
+                                         seed, background, max_depth, remat=True)
         mean_c = rad.reshape(n_pix, blk, 3).sum(dim=1) / samples_per_pixel
-        g = torch.autograd.grad(torch.sum(cot * mean_c), list(params.values()))
+        # under a flat sky the eager graph never reaches the geometry (a
+        # fixed path's radiance is a product of albedos): zero gradients.
+        # The replay reads every leaf through its tables, so there a leaf
+        # it does not reach is an error
+        eager_kw = {} if use_pallas else dict(allow_unused=True, materialize_grads=True)
+        g = torch.autograd.grad(torch.sum(cot * mean_c), list(params.values()), **eager_kw)
         for k, gk in zip(params, g):
             grads[k] += gk
-        t0 = tick("replay_s", t0)
+        t0 = tick("replay_s" if use_pallas else "pass2_s", t0)
 
     if timings is not None:
         timings.update(clock)

@@ -4,8 +4,10 @@ render path, device time only, and hash what it writes:
     python rtweekend_tpu_torch/tools/segments.py [--root DIR] [--reps N] [scene ...]
 
 Scenes: final_scene at 1200x675 and golden_scene, two_perlin_spheres,
-simple_light and earth at their default sizes, each through the render's
-capacity schedule; `pass2`, final_scene's 811,008 lanes traced in one
+simple_light and earth at their default sizes, each through the static
+capacity schedule (`render._capacities_for`, which every checkout has, so
+two checkouts time the same segments; render_image takes the measured
+`adaptive_capacities`); `pass2`, final_scene's 811,008 lanes traced in one
 launch at depth 50 (the train step's shape), radiance-only and with
 winners; and `scan`, the same lanes for one bounce (every lane live: the
 primitive scan at its widest). One JSON line per launch (b0, bounces, lanes, the launch shape

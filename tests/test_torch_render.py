@@ -61,15 +61,21 @@ def test_cli_writes_png(tmp_path):
     assert (tmp_path / "cornell.ppm").read_text().startswith("P3\n16 16\n255\n")
 
 
-@pytest.mark.parametrize("flags", [
-    ["--checkpoint", "x.ckpt"], ["--profile-dir", "prof"], ["--metrics", "m.jsonl"],
-    ["--adaptive-caps"], ["--dtype", "float64"],
+@pytest.mark.parametrize("flags,message", [
+    (["--dtype", "float64", "--kernel", "cuda"], "float32 only"),
+    (["--dtype", "float64", "--kernel", "torch"], "float32 only"),
+    (["--kernel", "pallas"], "invalid choice"),
+    (["--kernel", "jnp"], "invalid choice"),
+    (["--dtype", "float16"], "invalid choice"),
 ])
-def test_cli_refuses_unported_flags(flags, capsys):
+def test_cli_refuses_unported_flags(flags, message, capsys):
+    """What the port does not run is refused with a message: float64 on
+    the float32 bounce kernel (never downcast), and the JAX package's
+    kernel names (here: cuda, torch, eager)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["cornell_box", "--cpu", *flags])
     assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_cli_writes_png_of_a_noise_scene(tmp_path):

@@ -88,10 +88,37 @@ def test_params_round_trip():
 
 
 def test_train_step_refuses_unported_branches():
+    """A mesh (multi-device) is still refused; use_pallas=False, the eager
+    integrator, runs (tests/test_torch_eager_train.py holds it against
+    JAX), and under this flat sky its geometry gradients are zero."""
     scene = build_scene(NAME, device="cpu")
     cam = camera_for_scene(NAME, 1.0, "cpu")
     args = (scene, cam, torch.from_numpy(TARGET), W, H, SPP, DEPTH, BG, 43)
     with pytest.raises(NotImplementedError, match="Queue 1 #11"):
         sharded_train_step(*args, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        sharded_train_step(*args, use_pallas=False)
+    p1, loss = sharded_train_step(*args, lr=1.0, use_pallas=False)
+    p0 = extract_params(scene)
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(p1["c0"], p0["c0"], rtol=0, atol=0)
+    assert (p1["color"] != p0["color"]).any()
+
+
+def test_kernel_path_raises_on_a_leaf_the_replay_does_not_reach(monkeypatch):
+    """The eager branch takes a leaf its graph never reaches as a zero
+    gradient; the kernel path's replay reads every leaf through its
+    tables, so there an unreached leaf stays an error."""
+    from rtweekend_tpu_torch.parallel import shard
+
+    real = shard.trace_paths_replay_fast
+
+    def replay_without_ior(scene, *a, **kw):
+        rad = real(scene, *a, **kw)
+        return rad.detach() * 0.0 + scene.textures.color.sum() + scene.spheres.c0.sum() \
+            + scene.spheres.radius.sum() + scene.materials.fuzz.sum()
+
+    monkeypatch.setattr(shard, "trace_paths_replay_fast", replay_without_ior)
+    scene = build_scene(NAME, device="cpu")
+    cam = camera_for_scene(NAME, 1.0, "cpu")
+    with pytest.raises(RuntimeError, match="not have been used"):
+        sharded_train_step(scene, cam, torch.from_numpy(TARGET), W, H, SPP, DEPTH, BG, 43,
+                           kernel="torch")
