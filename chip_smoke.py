@@ -71,14 +71,34 @@ Phases, each printed as one JSON line:
                1200x675 16 spp, killed after its first save, then run again
                to the end: equal to an uninterrupted render_resumable;
  17. cli_options  the CLI with --adaptive-caps, --metrics and
-               --profile-dir on the card: the events and the trace file;
+               --profile-dir on the card: the events and the trace file,
+               read back by utils/trace_report (`trace_report`: device time
+               by kernel, category and launching op; the bounce kernel in it);
  18. train_eager  sharded_train_step(use_pallas=False) on golden_scene
                600x400, 2 spp, depth 50: seconds by pass, peak memory,
                nonzero c0, radius and albedo gradients, one more step under
                torch.profiler; then at 60x40,
                depth 8, its gradients against the kernel path's (the
                replay of the kernel's winners) on the rays whose paths
-               agree, in float64 (relative L2 <= 1e-4; float32 reported).
+               agree, in float64 (relative L2 <= 1e-4; float32 reported);
+ 19. multidevice  parallel/ on the card, one JSON line a run (backend,
+               world size, mesh): at world size 1 on NCCL in this process,
+               render_sharded of final_scene 1200x675, 16 spp, depth 50,
+               bit-equal to render under the same schedule, and one
+               sharded_train_step of final_scene (4 spp) equal to the
+               mesh=None step; then two ranks sharing the card over gloo
+               (torch.multiprocessing.spawn): the same render at meshes
+               (2, 1) and (1, 2) against render (rtol 1e-4 / atol 1e-4, the
+               ranks' framebuffers bit-equal), golden_scene's train step at
+               600x400, 2 spp, against the mesh=None step (loss rtol 1e-5,
+               lr=1 gradients rtol 2e-3 / atol 2e-6, nonzero geometry
+               gradients), and __graft_entry__.dryrun_multichip's shape
+               (simple_light 16x16, 4 spp, depth 4, mesh (1, 2),
+               rays_per_chunk 64: two winner blocks a rank, by the launch
+               counts) in both branches, each against its mesh=None step
+               and against the eager unsharded step (relative L2 < 0.05).
+               These runs measure the sharded layer and the collectives on
+               one card; they are not scaling.
 Every scene's schedule (its CPU probe) is computed after phase 1, before
 any timed render: host set-up cached per scene, like the kernel build.
 Kernel times are device time only: the launches are enqueued behind a
@@ -125,6 +145,12 @@ GOLDEN_GRAD_W, GOLDEN_GRAD_H = 60, 40
 SCENES_SPP = 16
 CKPT_SPP = 16            # the checkpointed render: 16 batches, a save every 4
 TRAIN_EAGER_SPP = 2
+# phase 19: two ranks sharing the card over gloo; golden_scene's step at
+# 2 spp; the shape of __graft_entry__.dryrun_multichip (simple_light 16x16,
+# 4 spp, depth 4, mesh (1, 2), rays_per_chunk 64: two winner blocks a rank)
+MD_WORLD, MD_MESHES, MD_GOLDEN_SPP = 2, ((2, 1), (1, 2)), 2
+DRYRUN_SIDE, DRYRUN_SPP, DRYRUN_DEPTH, DRYRUN_CHUNK = 16, 4, 4, 64
+MD_GRAD_RTOL, MD_GRAD_ATOL = 2e-3, 2e-6
 LANE_TOL, LANE_FRAC, MEAN_RTOL, TEX_MEAN_ATOL = 1e-3, 0.005, 0.02, 5e-3
 REPLAY_FRAC, GRAD_RTOL, SAME_PATH_RTOL = 0.01, 1e-2, 1e-4
 # the kernel variant each added scene exercises, and its means atol
@@ -318,6 +344,324 @@ def profile_fn(fn, **meta):
     return device_profile(fn, **meta)
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sha(tensors):
+    """sha256 of the bytes of a tensor or of a dict of tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (tensors.values() if isinstance(tensors, dict) else [tensors]):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def grads_of(p0, p1):
+    """lr = 1: the gradient is p0 - p1."""
+    return {k: (p0[k] - p1[k]).double() for k in p0}
+
+
+def hold_step(what, p0, got, want, want_loss):
+    """A sharded step against the mesh=None step: loss rtol 1e-5 and lr=1
+    gradients rtol 2e-3 / atol 2e-6 (tests/test_sharding.py:59-100).
+    got = (params, loss) on the CPU. Returns the gradients' max abs diff."""
+    import torch
+
+    params, loss = got
+    check(abs(loss - want_loss) <= 1e-5 * abs(want_loss),
+          f"{what}: loss {loss} vs mesh=None {want_loss}")
+    g, w = grads_of(p0, params), grads_of(p0, want)
+    for k in g:
+        check(bool(torch.isfinite(g[k]).all()), f"{what}: grad {k} not finite")
+        check(torch.allclose(g[k], w[k], rtol=MD_GRAD_RTOL, atol=MD_GRAD_ATOL),
+              f"{what}: grad {k} max diff {(g[k] - w[k]).abs().max().item()}")
+    return max((g[k] - w[k]).abs().max().item() for k in g)
+
+
+def multidevice_rank(rank, world, port, inputs_path, out_dir):
+    """One of the ranks sharing the card over gloo (phase 19), started by
+    torch.multiprocessing.spawn: the collective alone at the framebuffer's
+    shape, the dry-run shape in both branches, final_scene's render at each
+    mesh of MD_MESHES (twice: cold, warm) and golden_scene's train step at
+    each. Writes its results to <out_dir>/md_rank<rank>.pt;
+    rank 0 adds the framebuffers and parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from rtweekend_tpu_torch import render as render_mod
+    from rtweekend_tpu_torch.config import SCENE_DEFAULTS
+    from rtweekend_tpu_torch.models.builders import build_scene
+    from rtweekend_tpu_torch.ops.cuda import megakernel as mk
+    from rtweekend_tpu_torch.parallel import multihost, shard
+    from rtweekend_tpu_torch.parallel.mesh import make_mesh
+
+    dev = multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    inp = torch.load(inputs_path)
+    out = dict(rank=rank, device=str(dev), backend=dist.get_backend(), world=world)
+
+    buf = torch.zeros((MAIN_W * MAIN_H, 3), device=dev)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    del buf
+
+    # the dry-run shape first: its tiny step loads the replay's and the
+    # backward's device code, which the timed golden_scene steps then find
+    sscene = build_scene("simple_light", device=dev)
+    scam = render_mod.camera_for_scene("simple_light", 1.0, dev)
+    mesh = make_mesh((world // 2, 2))
+    for branch, kw in (("kernel", {}), ("eager", dict(use_pallas=False))):
+        mk.reset_launch_counts()
+        params, loss = shard.sharded_train_step(
+            sscene, scam, inp["dryrun_target"].to(dev), DRYRUN_SIDE, DRYRUN_SIDE, DRYRUN_SPP,
+            DRYRUN_DEPTH, (0.0, 0.0, 0.0), 43, mesh, lr=1.0, rays_per_chunk=DRYRUN_CHUNK, **kw)
+        out[f"dryrun_{branch}"] = dict(counts=mk.launch_counts(), loss=loss.item(),
+                                       sha=sha(params))
+        if rank == 0:
+            out[f"dryrun_params_{branch}"] = {k: v.cpu() for k, v in params.items()}
+    scene = build_scene("final_scene", device=dev)
+    cam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
+    bg = SCENE_DEFAULTS["final_scene"]["background"]
+    for shape in MD_MESHES:
+        mesh = make_mesh(shape)
+        tag = f"{shape[0]}x{shape[1]}"
+        walls, fbs = [], []
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            mk.reset_launch_counts()
+            t0 = time.perf_counter()
+            fbs.append(shard.render_sharded(scene, cam, MAIN_W, MAIN_H, MAIN_SPP, MAIN_DEPTH,
+                                            bg, 42, mesh, capacities=inp["caps"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"render_{tag}"] = dict(coord=list(mesh.get_coordinate()), wall_s=walls,
+                                    launches=mk.launch_counts()["launches"], sha=sha(fbs[0]),
+                                    repeat_equal=bool(torch.equal(fbs[0], fbs[1])))
+        if rank == 0:
+            out[f"fb_{tag}"] = fbs[0].cpu()
+        del fbs
+
+    gp = SCENE_DEFAULTS["golden_scene"]
+    gscene = shard.merge_params(build_scene("golden_scene", device=dev),
+                                {k: v.to(dev) for k, v in inp["golden_p0"].items()})
+    gcam = render_mod.camera_for_scene("golden_scene", gp["width"] / gp["height"], dev)
+    for shape in MD_MESHES:
+        mesh = make_mesh(shape)
+        tag = f"{shape[0]}x{shape[1]}"
+        dist.barrier()
+        torch.cuda.synchronize()
+        mk.reset_launch_counts()
+        tm = {}
+        t0 = time.perf_counter()
+        params, loss = shard.sharded_train_step(
+            gscene, gcam, inp["golden_target"].to(dev), gp["width"], gp["height"],
+            MD_GOLDEN_SPP, MAIN_DEPTH, gp["background"], 42, mesh, lr=1.0, timings=tm)
+        torch.cuda.synchronize()
+        out[f"golden_{tag}"] = dict(wall_s=time.perf_counter() - t0, timings=tm,
+                                    counts=mk.launch_counts(), loss=loss.item(), sha=sha(params))
+        if rank == 0:
+            out[f"golden_params_{tag}"] = {k: v.cpu() for k, v in params.items()}
+
+    torch.save(out, os.path.join(out_dir, f"md_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def multidevice_phase(dev, card, main_caps):
+    """Phase 19: render_sharded and sharded_train_step(mesh=) on the card,
+    first at world size 1 on NCCL in this process, then on two ranks that
+    share the card over gloo (multidevice_rank), each held against the
+    single-device result. Returns the phase's seconds."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from rtweekend_tpu_torch import render as render_mod
+    from rtweekend_tpu_torch.config import SCENE_DEFAULTS
+    from rtweekend_tpu_torch.models.builders import build_scene
+    from rtweekend_tpu_torch.ops.cuda import megakernel as mk
+    from rtweekend_tpu_torch.parallel import multihost, shard
+    from rtweekend_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    scene = build_scene("final_scene", device=dev)
+    cam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
+    bg = SCENE_DEFAULTS["final_scene"]["background"]
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- world size 1 on NCCL, in this process ----
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = make_mesh((1, 1))
+    ref, ref_s = synced(lambda: render_mod.render(scene, cam, MAIN_W, MAIN_H, MAIN_SPP,
+                                                  MAIN_DEPTH, bg, 42, capacities=main_caps))
+    fbs, fb_s = [], []   # cold (the first NCCL collective sets up its communicator), warm
+    for _ in range(2):
+        mk.reset_launch_counts()
+        fb, wall = synced(lambda: shard.render_sharded(scene, cam, MAIN_W, MAIN_H, MAIN_SPP,
+                                                       MAIN_DEPTH, bg, 42, mesh,
+                                                       capacities=main_caps))
+        fbs.append(fb)
+        fb_s.append(wall)
+    launches = mk.launch_counts()["launches"]
+    check(launches > 0, "render_sharded launched no bounce kernel")
+    check(all(torch.equal(fb, ref) for fb in fbs),
+          "NCCL world-1 render_sharded is not bit-equal to render")
+    ref2, ref2_s = synced(lambda: render_mod.render(scene, cam, MAIN_W, MAIN_H, MAIN_SPP,
+                                                    MAIN_DEPTH, bg, 42, capacities=main_caps))
+    emit("multidevice", run="render", backend="nccl", world_size=1, mesh=[1, 1],
+         scene="final_scene", width=MAIN_W, height=MAIN_H, spp=MAIN_SPP, depth=MAIN_DEPTH,
+         bit_equal=True, wall_s_render=[ref_s, ref2_s], wall_s_render_sharded=fb_s,
+         launches=launches, card=card)
+    del fb
+    target = shard.kernel_mean_image(scene, cam, MAIN_W, MAIN_H, TRAIN_SPP, MAIN_DEPTH, bg, 42)
+    p0 = shard.extract_params(scene)
+    tscene = shard.merge_params(scene, dict(p0, color=p0["color"] * 0.8))
+    steps = {"none": [], "mesh": []}
+    for name in ("none", "mesh", "mesh", "none"):   # in turns
+        tm = {}
+        mk.reset_launch_counts()
+        (params, loss), wall = synced(lambda: shard.sharded_train_step(
+            tscene, cam, target, MAIN_W, MAIN_H, TRAIN_SPP, MAIN_DEPTH, bg, 42,
+            mesh if name == "mesh" else None, lr=1.0, timings=tm))
+        steps[name].append((params, loss, wall, tm, mk.launch_counts()))
+    pn, ln = steps["none"][0][:2]
+    for params, loss, *_ in steps["none"] + steps["mesh"]:
+        diff = max((pn[k] - params[k]).abs().max().item() for k in pn)
+        check(torch.equal(ln, loss) and diff == 0.0,
+              f"NCCL world-1 train step: loss {loss.item()} vs {ln.item()}, "
+              f"params max diff {diff}")
+    emit("multidevice", run="train", backend="nccl", world_size=1, mesh=[1, 1],
+         scene="final_scene", width=MAIN_W, height=MAIN_H, spp=TRAIN_SPP, depth=MAIN_DEPTH,
+         loss=ln.item(), params_max_abs_diff=0.0,
+         wall_s=[st[2] for st in steps["mesh"]], wall_s_mesh_none=[st[2] for st in steps["none"]],
+         timings=[st[3] for st in steps["mesh"]],
+         timings_mesh_none=[st[3] for st in steps["none"]], **steps["mesh"][0][4], card=card)
+    dist.destroy_process_group()
+    del steps, pn, fbs, ref2, target, tscene
+    torch.cuda.empty_cache()
+
+    # ---- references of the two-rank runs, on one device ----
+    gp = SCENE_DEFAULTS["golden_scene"]
+    gscene = build_scene("golden_scene", device=dev)
+    gcam = render_mod.camera_for_scene("golden_scene", gp["width"] / gp["height"], dev)
+    gtarget = shard.kernel_mean_image(gscene, gcam, gp["width"], gp["height"], MD_GOLDEN_SPP,
+                                      MAIN_DEPTH, gp["background"], 42)
+    g0 = shard.extract_params(gscene)
+    gp0 = dict(g0, color=g0["color"] * 0.8)
+    gscene = shard.merge_params(gscene, gp0)
+    (gp1, gloss), gwall = synced(lambda: shard.sharded_train_step(
+        gscene, gcam, gtarget, gp["width"], gp["height"], MD_GOLDEN_SPP, MAIN_DEPTH,
+        gp["background"], 42, lr=1.0))
+    sscene = build_scene("simple_light", device=dev)
+    scam = render_mod.camera_for_scene("simple_light", 1.0, dev)
+    dtarget = render_mod.render(sscene, scam, DRYRUN_SIDE, DRYRUN_SIDE, DRYRUN_SPP,
+                                DRYRUN_DEPTH, (0.0, 0.0, 0.0), 42) / DRYRUN_SPP
+    dry = {branch: shard.sharded_train_step(
+        sscene, scam, dtarget, DRYRUN_SIDE, DRYRUN_SIDE, DRYRUN_SPP, DRYRUN_DEPTH,
+        (0.0, 0.0, 0.0), 43, lr=1.0, rays_per_chunk=DRYRUN_CHUNK, **kw)
+        for branch, kw in (("kernel", {}), ("eager", dict(use_pallas=False)))}
+    inputs = os.path.join(OUT_DIR, "md_inputs.pt")
+    torch.save(dict(caps=main_caps, golden_p0={k: v.cpu() for k, v in gp0.items()},
+                    golden_target=gtarget.cpu(), dryrun_target=dtarget.cpu()), inputs)
+    for r in range(MD_WORLD):
+        path = os.path.join(OUT_DIR, f"md_rank{r}.pt")
+        if os.path.exists(path):
+            os.unlink(path)
+    torch.cuda.empty_cache()
+
+    # ---- two ranks sharing the card over gloo (the kernel is built: the
+    # ranks load the library this process built) ----
+    t0 = time.perf_counter()
+    mp.spawn(multidevice_rank, args=(MD_WORLD, free_port(), inputs, OUT_DIR), nprocs=MD_WORLD,
+             join=True)
+    spawn_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(OUT_DIR, f"md_rank{r}.pt")) for r in range(MD_WORLD)]
+    for r, rr in enumerate(res):
+        check(rr["backend"] == "gloo" and torch.device(rr["device"]).type == dev.type
+              and rr["rank"] == r, f"rank {r}: {rr['backend']} on {rr['device']}")
+    for shape in MD_MESHES:
+        tag = f"{shape[0]}x{shape[1]}"
+        got = res[0][f"fb_{tag}"].to(dev)
+        check(all(rr[f"render_{tag}"]["sha"] == res[0][f"render_{tag}"]["sha"] for rr in res),
+              f"gloo {tag}: the ranks' framebuffers differ")
+        check(all(rr[f"render_{tag}"]["repeat_equal"] for rr in res),
+              f"gloo {tag}: a repeated render differs")
+        check(all(rr[f"render_{tag}"]["launches"] > 0 for rr in res),
+              f"gloo {tag}: a rank launched no bounce kernel")
+        check(torch.allclose(got, ref, rtol=1e-4, atol=1e-4),
+              f"gloo {tag}: render_sharded vs render max diff {(got - ref).abs().max().item()}")
+        emit("multidevice", run="render", backend="gloo", world_size=MD_WORLD, mesh=list(shape),
+             scene="final_scene", width=MAIN_W, height=MAIN_H, spp=MAIN_SPP, depth=MAIN_DEPTH,
+             bit_equal=bool(torch.equal(got, ref)), max_abs_diff=(got - ref).abs().max().item(),
+             wall_s_render=ref_s, ranks=[rr[f"render_{tag}"] for rr in res],
+             allreduce_ms=[rr["allreduce_ms"] for rr in res],
+             allreduce_bytes=MAIN_W * MAIN_H * 3 * 4, card=card)
+    gp0_cpu = {k: v.cpu() for k, v in gp0.items()}
+    gp1_cpu = {k: v.cpu() for k, v in gp1.items()}
+    for shape in MD_MESHES:
+        tag = f"{shape[0]}x{shape[1]}"
+        got = res[0][f"golden_params_{tag}"]
+        check(all(rr[f"golden_{tag}"]["sha"] == res[0][f"golden_{tag}"]["sha"]
+                  and rr[f"golden_{tag}"]["loss"] == res[0][f"golden_{tag}"]["loss"]
+                  for rr in res), f"gloo golden {tag}: the ranks' parameters differ")
+        dmax = hold_step(f"gloo golden {tag}", gp0_cpu, (got, res[0][f"golden_{tag}"]["loss"]),
+                         gp1_cpu, gloss.item())
+        g = grads_of(gp0_cpu, got)
+        for k in ("c0", "radius", "color"):
+            check(g[k].abs().sum().item() > 0, f"gloo golden {tag}: zero {k} gradient")
+        emit("multidevice", run="train", backend="gloo", world_size=MD_WORLD, mesh=list(shape),
+             scene="golden_scene", width=gp["width"], height=gp["height"], spp=MD_GOLDEN_SPP,
+             depth=MAIN_DEPTH, loss=res[0][f"golden_{tag}"]["loss"], loss_mesh_none=gloss.item(),
+             grad_max_abs_diff=dmax, wall_s_mesh_none=gwall,
+             ranks=[rr[f"golden_{tag}"] for rr in res],
+             grad_l2={k: torch.linalg.norm(v).item() for k, v in g.items()}, card=card)
+    s0 = {k: v.cpu() for k, v in shard.extract_params(sscene).items()}
+    eager_ref = grads_of(s0, {k: v.cpu() for k, v in dry["eager"][0].items()})
+    for branch in ("kernel", "eager"):
+        got = res[0][f"dryrun_params_{branch}"]
+        check(all(rr[f"dryrun_{branch}"]["sha"] == res[0][f"dryrun_{branch}"]["sha"]
+                  for rr in res), f"dry run {branch}: the ranks' parameters differ")
+        blocks = [rr[f"dryrun_{branch}"]["counts"]["winners_launches"] for rr in res]
+        check(blocks == ([2] * MD_WORLD if branch == "kernel" else [0] * MD_WORLD),
+              f"dry run {branch}: winner blocks a rank {blocks}")
+        want = {k: v.cpu() for k, v in dry[branch][0].items()}
+        dmax = hold_step(f"dry run {branch}", s0, (got, res[0][f"dryrun_{branch}"]["loss"]),
+                         want, dry[branch][1].item())
+        # __graft_entry__.py:110-120: against the eager unsharded estimator
+        g = grads_of(s0, got)
+        rel = {k: rel_l2(g[k], eager_ref[k]) for k in g}
+        for k in g:
+            den = torch.linalg.norm(eager_ref[k]).item()
+            check(rel[k] < 0.05 or den < 1e-8, f"dry run {branch}: grad {k} relative L2 "
+                  f"{rel[k]} against the eager unsharded step")
+        emit("multidevice", run="dryrun", backend="gloo", world_size=MD_WORLD,
+             mesh=[MD_WORLD // 2, 2], branch=branch, scene="simple_light", width=DRYRUN_SIDE,
+             height=DRYRUN_SIDE, spp=DRYRUN_SPP, depth=DRYRUN_DEPTH,
+             rays_per_chunk=DRYRUN_CHUNK, winner_blocks=blocks,
+             loss=res[0][f"dryrun_{branch}"]["loss"], loss_mesh_none=dry[branch][1].item(),
+             grad_max_abs_diff=dmax, rel_l2_vs_eager_unsharded=rel, card=card)
+    seconds = time.perf_counter() - t_phase
+    emit("multidevice_phase", seconds=seconds, spawn_s=spawn_s, card=card)
+    return seconds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -339,6 +683,7 @@ def main() -> int:
     from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
     from rtweekend_tpu_torch.parallel import shard
     from rtweekend_tpu_torch.utils import image as image_mod
+    from rtweekend_tpu_torch.utils import trace_report
     from rtweekend_tpu_torch import checkpoint, cli
     from rtweekend_tpu_torch.ops import integrator
 
@@ -967,6 +1312,12 @@ def main() -> int:
     emit("cli_options", scene="cornell_box", events=names, render_done=events[-1],
          launches=cli_launches, trace=traces[0], trace_events=len(trace_events),
          trace_device_kernels=n_dev, card=card)
+    # the trace read back by the report tool
+    rep = trace_report.report(pdir)
+    check(rep["device_total_s"] > 0, f"trace report: device total {rep['device_total_s']}")
+    check(any("bounce_kernel" in k for k in rep["by_kernel"]),
+          f"trace report: no bounce kernel in {list(rep['by_kernel'])}")
+    emit("trace_report", **rep, card=card)
 
     # ---- 18. the eager train step ----
     tname = "golden_scene"
@@ -1045,6 +1396,9 @@ def main() -> int:
     emit("train_eager_vs_kernel", scene=tname, size=f"{GOLDEN_GRAD_W}x{GOLDEN_GRAD_H}",
          spp=GRAD_SPP, depth=GRAD_DEPTH, same_path_frac=same_frac,
          rel_l2_same_path=rel, card=card)
+
+    # ---- 19. multi-device: NCCL at world size 1, two gloo ranks on the card ----
+    multidevice_phase(dev, card, main_caps)
 
     emit("total", seconds=time.perf_counter() - t_start)
 

@@ -19,7 +19,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rtweekend_tpu_torch.render import _Tracer, _capacities_for, batch_size, resolve_kernel
+from rtweekend_tpu_torch.render import (
+    _Tracer,
+    _capacities_for,
+    batch_size,
+    resolve_kernel,
+    to_framebuffer,
+)
 
 
 @dataclasses.dataclass
@@ -85,6 +91,7 @@ def render_resumable(scene, camera, scene_name: str, width: int, height: int,
         accum = torch.as_tensor(state.accum, dtype=dtype).to(scene.device)
     else:
         accum = torch.zeros((height, width, 3), dtype=dtype, device=scene.device)
+    sums = accum.flip(0).reshape(width * height, 3)   # the tracer's pixel-id order
 
     seed = int(seed) & 0xFFFFFFFF
     batch = batch_size(width * height, samples_per_pixel, rays_per_chunk)
@@ -93,16 +100,17 @@ def render_resumable(scene, camera, scene_name: str, width: int, height: int,
     i = 0
     while done < samples_per_pixel:
         n = min(batch, samples_per_pixel - done)
-        accum = tracer.batch(done, n, accum)
+        sums = tracer.batch(done, n, sums)
         done += n
         i += 1
         if i % checkpoint_every == 0 and done < samples_per_pixel:
-            accum = tracer.recover(accum)
-            save(checkpoint_path, RenderState(accum.cpu().numpy(), done, meta))
+            sums = tracer.recover(sums)
+            save(checkpoint_path, RenderState(
+                to_framebuffer(sums, width, height).cpu().numpy(), done, meta))
         if progress:
             print(f"\rsamples: {done}/{samples_per_pixel}   ", end="", flush=True)
     if progress:
         print()
-    accum = tracer.recover(accum)
+    accum = to_framebuffer(tracer.recover(sums), width, height)
     save(checkpoint_path, RenderState(accum.cpu().numpy(), done, meta))
     return accum

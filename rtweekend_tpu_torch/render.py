@@ -2,14 +2,17 @@
 
 The reference's rows/cols/samples loop (reference src/main.zig:382-402)
 becomes: generate every pixel's rays for a batch of samples at once,
-trace them as one wavefront, and add the per-pixel radiance sums into a
-framebuffer on the device. Two tracers:
+trace them as one wavefront, and add the per-pixel radiance sums, in
+pixel-id order, into a buffer on the device that becomes the framebuffer
+once, at the end. `render_range` does this for a range of pixel ids and
+of sample ids, which is how each rank of parallel/shard.render_sharded
+traces its part. Two tracers:
 
 - the bounce kernel (kernel "cuda", or its plain version "torch"; "auto"
   picks the kernel on the card), float32, through the compacted driver.
   Nothing is read back to the host until the end of the render, where the
   overflow flags of all batches are read once and any overflowed batch is
-  traced again uncompacted (`_recover_overflows`). render_image derives
+  traced again uncompacted (`_Tracer.recover`). render_image derives
   the compaction schedule from a measured alive-fraction probe of the
   scene (`adaptive_capacities`);
 - the eager integrator (kernel "eager": ops/integrator.trace_paths, no
@@ -72,25 +75,38 @@ def resolve_kernel(kernel: str, dtype: torch.dtype) -> str:
 
 
 def _gen_batch_rays(camera: Camera, seed: int, sample_start: int, *,
-                    width: int, height: int, n_samples: int):
+                    width: int, height: int, n_samples: int, pixels=None):
+    """The rays of every pixel of the id range `pixels` = (start, stop)
+    (default: the whole image) with samples sample_start ..
+    sample_start + n_samples - 1, pixel-major."""
     dev = camera.origin.device
-    n_pix = width * height
-    pixel_ids = torch.arange(n_pix, dtype=torch.int32, device=dev).repeat_interleave(
+    p0, p1 = (0, width * height) if pixels is None else pixels
+    pixel_ids = torch.arange(p0, p1, dtype=torch.int32, device=dev).repeat_interleave(
         n_samples
     )
     sample_ids = sample_start + torch.arange(
         n_samples, dtype=torch.int32, device=dev
-    ).repeat(n_pix)
+    ).repeat(p1 - p0)
     o, d, t = generate_rays(camera, width, height, pixel_ids, sample_ids, seed)
     return o, d, t, pixel_ids, sample_ids
+
+
+def _pixel_sums(radiance, n_samples: int):
+    """Per-pixel sums [n_pix, 3] of a pixel-major batch's radiance."""
+    return radiance.reshape(-1, n_samples, 3).sum(dim=1)
 
 
 def _accum_batch(accum, radiance, *, width: int, height: int, n_samples: int):
     """accum [H, W, 3] += per-pixel sums; row 0 is the image TOP (the
     reference flips at store, main.zig:396). Updates accum in place."""
-    sums = radiance.reshape(width * height, n_samples, 3).sum(dim=1)
-    accum += sums.reshape(height, width, 3).flip(0)
+    accum += _pixel_sums(radiance, n_samples).reshape(height, width, 3).flip(0)
     return accum
+
+
+def to_framebuffer(sums, width: int, height: int):
+    """Per-pixel sums [W * H, 3] in pixel-id order (bottom-up rows) as a
+    framebuffer [H, W, 3] with row 0 at the top."""
+    return sums.reshape(height, width, 3).flip(0)
 
 
 def _capacities_for(background):
@@ -226,37 +242,97 @@ def batch_size(n_pix: int, samples_per_pixel: int, rays_per_chunk: int) -> int:
 
 
 class _Tracer:
-    """A render's sample batches on one tracer: `batch(start, n, accum)`
-    adds samples start .. start + n - 1 of every pixel into accum, and
-    `recover(accum)` re-traces the kernel batches whose compaction
-    overflowed since the last call."""
+    """A render's sample batches over the pixel-id range `pixels` (default:
+    the whole image) on one tracer: `batch(start, n, sums)` adds samples
+    start .. start + n - 1 of every pixel of the range into the per-pixel
+    sums [n_pix, 3] (pixel-id order), and `recover(sums)` re-traces the
+    kernel batches whose compaction overflowed since the last call: their
+    compacted contribution (deterministic, counter-keyed) is subtracted and
+    the batch traced again without compaction, which never drops rays. The
+    flags are read once, in recover."""
 
     def __init__(self, scene, camera, width, height, max_depth, background, seed,
-                 kernel, capacities):
-        self.kw = dict(width=width, height=height, max_depth=max_depth)
+                 kernel, capacities, pixels=None):
+        self.ray_kw = dict(width=width, height=height, pixels=pixels)
         self.scene, self.camera, self.background, self.seed = scene, camera, background, seed
+        self.max_depth = max_depth
         self.kernel = kernel
         self.eager = kernel == "eager"
         self.tables = None if self.eager else pack_scene(scene)
         self.capacities = capacities
         self.overflows = []  # [(sample_start, n_samples, device flag)]
 
-    def batch(self, start, n, accum):
-        if self.eager:
-            return render_batch_eager(self.scene, self.camera, self.background, self.seed,
-                                      start, accum, n_samples=n, **self.kw)
-        accum, ovf = render_batch_compact(
-            self.tables, self.camera, self.background, self.seed, start, accum,
-            n_samples=n, capacities=self.capacities, kernel=self.kernel, **self.kw)
-        self.overflows.append((start, n, ovf))
-        return accum
+    def _rays(self, start, n):
+        return _gen_batch_rays(self.camera, self.seed, start, n_samples=n, **self.ray_kw)
 
-    def recover(self, accum):
-        accum = _recover_overflows(
-            accum, self.overflows, self.tables, self.camera, self.background, self.seed,
-            capacities=self.capacities, kernel=self.kernel, **self.kw)
+    def _compact(self, rays):
+        return trace_paths_compact(self.tables, *rays, self.seed, self.background,
+                                   self.max_depth, capacities=self.capacities,
+                                   kernel=self.kernel)
+
+    def batch(self, start, n, sums):
+        rays = self._rays(start, n)
+        if self.eager:
+            rad = integrator.trace_paths(self.scene, *rays, self.seed, self.background,
+                                         self.max_depth)
+        else:
+            rad, ovf = self._compact(rays)
+            self.overflows.append((start, n, ovf))
+        sums += _pixel_sums(rad, n)
+        return sums
+
+    def recover(self, sums):
+        if not self.overflows:
+            return sums
+        flags = torch.stack([f for _, _, f in self.overflows]).cpu()
+        for (start, n, _), bad in zip(self.overflows, flags.tolist()):
+            if not bad:
+                continue
+            rays = self._rays(start, n)
+            wrong, _ = self._compact(rays)
+            good = trace_paths(self.tables, *rays, self.seed, self.background, self.max_depth,
+                               kernel=self.kernel)
+            sums = sums - _pixel_sums(wrong, n) + _pixel_sums(good, n)
         self.overflows = []
-        return accum
+        return sums
+
+
+@torch.no_grad()
+def render_range(scene: Scene, camera: Camera, width: int, height: int, pixels, samples,
+                 max_depth: int, background, seed: int, *, rays_per_chunk: int = 1 << 20,
+                 kernel: str = "auto", capacities=None, progress: bool = False,
+                 metrics=None):
+    """Per-pixel radiance sums [p1 - p0, 3], in pixel-id order (bottom-up
+    rows), of the pixel ids pixels = (p0, p1) over the sample ids
+    samples = (s0, s1): render()'s tracing (sample batches of at most
+    rays_per_chunk rays, compaction, overflow recovery) for one part of
+    an image. render() runs it over the whole image; each rank of
+    parallel/shard.render_sharded over its own part. The counter RNG keys
+    every draw by (seed, pixel, sample), so a part's draws are the whole
+    render's. Arguments as in render(); metrics receives a
+    batch_submitted event a batch."""
+    dtype = scene.spheres.c0.dtype
+    kernel = resolve_kernel(kernel, dtype)
+    if capacities is None:
+        capacities = _capacities_for(background)
+    seed = int(seed) & 0xFFFFFFFF
+    (p0, p1), (s0, s1) = pixels, samples
+    batch = batch_size(p1 - p0, s1 - s0, rays_per_chunk)
+    tracer = _Tracer(scene, camera, width, height, max_depth, background, seed, kernel,
+                     capacities, pixels=(p0, p1))
+    sums = torch.zeros((p1 - p0, 3), dtype=dtype, device=scene.device)
+    done = s0
+    while done < s1:
+        n = min(batch, s1 - done)
+        sums = tracer.batch(done, n, sums)
+        done += n
+        if metrics is not None:
+            metrics.log("batch_submitted", samples_done=done - s0, spp=s1 - s0)
+        if progress:
+            print(f"\rsamples: {done - s0}/{s1 - s0}   ", end="", flush=True)
+    if progress:
+        print()
+    return tracer.recover(sums)
 
 
 @torch.no_grad()
@@ -277,63 +353,26 @@ def render(scene: Scene, camera: Camera, width: int, height: int,
     (bounce, fraction); () disables compaction); by default it follows the
     background. metrics: an optional utils.metrics.MetricsLogger, which
     receives render_start, batch_submitted and render_done events."""
-    dtype = scene.spheres.c0.dtype
-    kernel = resolve_kernel(kernel, dtype)
-    if capacities is None:
-        capacities = _capacities_for(background)
-    seed = int(seed) & 0xFFFFFFFF
-    batch = batch_size(width * height, samples_per_pixel, rays_per_chunk)
-    tracer = _Tracer(scene, camera, width, height, max_depth, background, seed, kernel,
-                     capacities)
+    n_pix = width * height
     if metrics is not None:
         metrics.log("render_start", width=width, height=height, spp=samples_per_pixel,
-                    max_depth=max_depth, batch=batch, use_pallas=not tracer.eager,
+                    max_depth=max_depth,
+                    batch=batch_size(n_pix, samples_per_pixel, rays_per_chunk),
+                    use_pallas=resolve_kernel(kernel, scene.spheres.c0.dtype) != "eager",
                     n_devices=1, backend=scene.device.type)
     t_start = time.perf_counter()
-    accum = torch.zeros((height, width, 3), dtype=dtype, device=scene.device)
-    done = 0
-    while done < samples_per_pixel:
-        n = min(batch, samples_per_pixel - done)
-        accum = tracer.batch(done, n, accum)
-        done += n
-        if metrics is not None:
-            metrics.log("batch_submitted", samples_done=done, spp=samples_per_pixel)
-        if progress:
-            print(f"\rsamples: {done}/{samples_per_pixel}   ", end="", flush=True)
-    if progress:
-        print()
-    accum = tracer.recover(accum)
+    sums = render_range(scene, camera, width, height, (0, n_pix), (0, samples_per_pixel),
+                        max_depth, background, seed, rays_per_chunk=rays_per_chunk,
+                        kernel=kernel, capacities=capacities, progress=progress,
+                        metrics=metrics)
+    accum = to_framebuffer(sums, width, height)
     if metrics is not None:
         if accum.device.type == "cuda":
             torch.cuda.synchronize(accum.device)
         wall = time.perf_counter() - t_start
-        n_rays = width * height * samples_per_pixel
+        n_rays = n_pix * samples_per_pixel
         metrics.log("render_done", wall_s=round(wall, 4), rays_per_s=round(n_rays / wall),
                     rays_per_s_per_device=round(n_rays / wall), spp=samples_per_pixel)
-    return accum
-
-
-def _recover_overflows(accum, overflows, tables, camera, background, seed, *,
-                       width, height, max_depth, capacities, kernel):
-    """Re-trace every batch whose compaction capacity overflowed. The
-    flags are read once, here; for a bad batch the compacted contribution
-    (deterministic, counter-keyed) is subtracted and the batch traced
-    again without compaction, which never drops rays."""
-    if not overflows:
-        return accum
-    flags = torch.stack([f for _, _, f in overflows]).cpu()
-    for (start, n, _), bad in zip(overflows, flags.tolist()):
-        if not bad:
-            continue
-        kw = dict(width=width, height=height, n_samples=n, max_depth=max_depth,
-                  kernel=kernel)
-        wrong, _ = render_batch_compact(
-            tables, camera, background, seed, start, torch.zeros_like(accum),
-            capacities=capacities, **kw,
-        )
-        good = render_batch(tables, camera, background, seed, start,
-                            torch.zeros_like(accum), **kw)
-        accum = accum - wrong + good
     return accum
 
 

@@ -88,13 +88,15 @@ def test_params_round_trip():
 
 
 def test_train_step_refuses_unported_branches():
-    """A mesh (multi-device) is still refused; use_pallas=False, the eager
-    integrator, runs (tests/test_torch_eager_train.py holds it against
-    JAX), and under this flat sky its geometry gradients are zero."""
+    """An object that is not a (tiles, samples) DeviceMesh is refused with
+    TypeError (tests/test_torch_multidevice.py runs real meshes);
+    use_pallas=False, the eager integrator, runs
+    (tests/test_torch_eager_train.py holds it against JAX), and under this
+    flat sky its geometry gradients are zero."""
     scene = build_scene(NAME, device="cpu")
     cam = camera_for_scene(NAME, 1.0, "cpu")
     args = (scene, cam, torch.from_numpy(TARGET), W, H, SPP, DEPTH, BG, 43)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sharded_train_step(*args, mesh=object())
     p1, loss = sharded_train_step(*args, lr=1.0, use_pallas=False)
     p0 = extract_params(scene)
