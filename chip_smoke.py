@@ -99,6 +99,31 @@ Phases, each printed as one JSON line:
                and against the eager unsharded step (relative L2 < 0.05).
                These runs measure the sharded layer and the collectives on
                one card; they are not scaling.
+ 20. parity    tools/parity.render_baseline_configs: BASELINE configs 1-4
+               (book1_diffuse 200x100 10 spp depth 10, book1_metal_dielectric
+               400x225 50 spp, book1_defocus 400x225 100 spp, final_scene
+               1200x675 100 spp; depth 50, seed 42) rendered on the card
+               into smoke_out/parity/, each held against the JAX package's
+               TPU render of it (artifacts/, named by parity_report.json):
+               compare()'s statistics, the share of pixels that differ and
+               that are off by more than 2 of 255 levels, the largest
+               difference, the render's seconds; config 4's rows 135-270
+               traced again by the plain version, its distance from the
+               TPU beside the kernel's. Bars (tools/parity.py): at most
+               0.5% of pixels off by > 2 levels (config 4: 1.2%, 1.3x what
+               JAX's own CPU render shows against its TPU render), channel
+               means within 0.002, every 3x3 region within 0.005; on config
+               4's band the kernel against the plain version at most 0.8%
+               of pixels off by > 2 levels (1.3x the 0.608% measured) and
+               channel means within 0.002; the committed artifacts and
+               parity_report.json unchanged;
+ 21. tools     tools/bench_scenes.main([]) (five rows, rays/s and launches
+               positive), tools/bench.main([]) (the headline line, then the
+               roofline with 0 < pct_of_sol <= 100 and a finite
+               fwd_bwd_rays_per_s) and tools/bench_scaling.main on two gloo
+               ranks sharing the card (rows k = 1, 2, positive rays/s, a
+               collective share of busy time in [0, 1]), their output
+               echoed.
 Every scene's schedule (its CPU probe) is computed after phase 1, before
 any timed render: host set-up cached per scene, like the kernel build.
 Kernel times are device time only: the launches are enqueued behind a
@@ -162,13 +187,6 @@ VARIANT_SCENES = (("two_perlin_spheres", "noise", TEX_MEAN_ATOL),
                   ("golden_scene", "sky", 0.0))
 # scenes lit only by their lights: the darkness check is scaled down
 LIGHT_ONLY = ("simple_light", "cornell_box")
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM
-FP32_FLOPS = 67e12
-HBM_BYTES_S = 3.35e12
-# arithmetic operations of the texture work per live hit (noise, image)
-# and of the gradient sky per live miss, counted from csrc/megakernel.cu
-# (its source note lists the terms)
-NOISE_OPS, IMAGE_OPS, SKY_OPS = 1338, 118, 15
 
 
 def emit(phase, **kw):
@@ -243,10 +261,14 @@ def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk):
     which are reset before each main path)."""
     import numpy as np
 
+    from rtweekend_tpu_torch.utils.roofline import (
+        COEF_FEATURES, FP32_FLOPS, HBM_BYTES_S, IMAGE_OPS, NOISE_OPS, SKY_OPS, coef_rows,
+        march_flop)
+
     ns = int(scene.spheres.active.sum().item())
     nr = int(scene.rects.active.sum().item())
-    rows = 2 * ns + 6 * nr
-    flop_per_rb = 2 * 17 * rows + 2 * ns
+    rows = coef_rows(ns, nr)
+    flop_per_rb = march_flop(ns, nr)
     has_sky = np.asarray(bg).ndim == 2
     ttype = tables.attr_i[mk._AI_TTYPE]
     live_rb = noise_hits = image_hits = live_misses = 0
@@ -263,7 +285,7 @@ def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk):
     ops = (live_rb * flop_per_rb + noise_hits * NOISE_OPS * tables.has_noise
            + image_hits * IMAGE_OPS * tables.has_image + live_misses * SKY_OPS * has_sky)
     m = state.shape[0]
-    table_bytes = (rows * 17 + (29 + 5) * (ns + nr)) * 4
+    table_bytes = (rows * COEF_FEATURES + (29 + 5) * (ns + nr)) * 4
     table_bytes += 2 * 768 * 4 if tables.has_noise else 0
     texels = int((scene.image_w.long() * scene.image_h.long()).sum().item())
     table_bytes += texels * 4 if tables.has_image else 0
@@ -662,6 +684,118 @@ def multidevice_phase(dev, card, main_caps):
     return seconds
 
 
+def parity_phase(dev, card):
+    """Phase 20: tools/parity.render_baseline_configs on the card, each
+    config's image held against the JAX package's TPU render of it
+    (parity_report.json, artifacts/): compare()'s statistics, the pixel
+    statistics and the render's seconds, one line a config; config 4's
+    band (parity.PLAIN_BAND) traced again by the plain version; then the
+    bars, the kernel against the plain version on the band, and the
+    committed artifacts and report unchanged. Returns the phase's
+    seconds."""
+    from rtweekend_tpu_torch.tools import parity
+
+    t_phase = time.perf_counter()
+    report_sha = parity._sha256(parity.TPU_REPORT)
+    rows = parity.render_baseline_configs(os.path.join(OUT_DIR, "parity"), device=dev)
+    vs = parity.against_tpu(rows)
+    for key, row in rows.items():
+        emit("parity", config=key, **{k: row[k] for k in (
+            "scene", "width", "height", "spp", "max_depth", "render_s", "sha256", "finite")},
+             **vs[key], card=card)
+    # config 4's rows 135-270 (where the pixels that differ are densest)
+    # through the plain version on the card: how far the exact-order fp32
+    # formula is from the TPU render, beside the kernel's distance, and the
+    # kernel held to it
+    t0 = time.perf_counter()
+    band_key, top, bottom = parity.PLAIN_BAND
+    band = parity.band_against_plain(band_key, rows[band_key], top, bottom, device=dev)
+    emit("parity_plain_band", config=band_key, **band, seconds=time.perf_counter() - t0,
+         bar=dict(pixels_off_by_gt2_frac=parity.PLAIN_OFF2_FRAC, channel_mean=parity.MEAN_TOL),
+         card=card)
+    unchanged = parity.tpu_artifacts_unchanged()
+    seconds = time.perf_counter() - t_phase
+    emit("parity_phase", seconds=seconds, artifacts_unchanged=unchanged,
+         bars=dict(pixels_off_by_gt2_frac=parity.OFF2_FRAC, channel_mean=parity.MEAN_TOL,
+                   region=parity.REGION_TOL), card=card)
+    check(all(unchanged.values()) and parity._sha256(parity.TPU_REPORT) == report_sha,
+          f"a committed TPU artifact or parity_report.json changed: {unchanged}")
+    for key, row in rows.items():
+        v = vs[key]
+        check(row["finite"], f"parity {key}: non-finite radiance")
+        check(v["pixels_off_by_gt2_frac"] <= parity.OFF2_FRAC[key],
+              f"parity {key}: {v['pixels_off_by_gt2_frac']} of pixels off by > 2 levels")
+        check(v["channel_mean_max_abs_diff"] <= parity.MEAN_TOL,
+              f"parity {key}: channel means {v['channel_means_ours']} vs TPU "
+              f"{v['channel_means_golden']}")
+        check(max(v["region_mean_abs_diff"].values()) <= parity.REGION_TOL,
+              f"parity {key}: regions {v['region_mean_abs_diff']}")
+    vp = band["image_vs_plain"]
+    check(vp["pixels_off_by_gt2_frac"] <= parity.PLAIN_OFF2_FRAC
+          and vp["channel_mean_max_abs_diff"] <= parity.MEAN_TOL,
+          f"parity {band_key} rows {top}-{bottom}: kernel against plain {vp}")
+    return seconds
+
+
+def tool_run(fn, argv):
+    """fn(argv) with its standard output captured, echoed and returned as
+    (lines, JSON objects among them, seconds); fails unless it returns 0."""
+    import contextlib
+    import io
+    import math
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    seconds = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    check(rc == 0, f"{fn.__module__}.main({argv}) returned {rc}")
+    lines = buf.getvalue().splitlines()
+    objs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    for o in objs:
+        for k, v in o.items():
+            check(not isinstance(v, float) or math.isfinite(v), f"{fn.__module__}: {k} = {v}")
+    return lines, objs, seconds
+
+
+def tools_phase(card):
+    """Phase 21: tools/bench_scenes, tools/bench and tools/bench_scaling (two
+    gloo ranks sharing the card) at their defaults, their JSON lines
+    checked. Returns the phase's seconds."""
+    from rtweekend_tpu_torch.tools import bench, bench_scaling, bench_scenes
+
+    t_phase = time.perf_counter()
+    lines, rows, scenes_s = tool_run(bench_scenes.main, [])
+    check(lines[0] == card, f"bench_scenes: first line {lines[0]!r}, not the card's")
+    check([r["scene"] for r in rows] == [c[0] for c in bench_scenes.CONFIGS],
+          f"bench_scenes: rows {[r['scene'] for r in rows]}")
+    for r in rows:
+        check(r["rays_per_s"] > 0 and r["launches"] > 0, f"bench_scenes: {r}")
+
+    _, objs, bench_s = tool_run(bench.main, [])
+    check(len(objs) == 2, f"bench: {len(objs)} JSON lines")
+    head, full = objs
+    check(set(head) == {"metric", "value", "unit", "warm_s", "exec_s", "card"}
+          and head["metric"] == f"rays_per_s_card_{bench.SCENE}_{bench.WIDTH}x{bench.HEIGHT}"
+          and head["value"] > 0 and full["card"] == card,
+          f"bench: headline {head}")
+    check(0 < full["pct_of_sol"] <= 100, f"bench: pct_of_sol {full['pct_of_sol']}")
+    check(full["fwd_bwd_rays_per_s"] > 0, f"bench: fwd_bwd {full['fwd_bwd_rays_per_s']}")
+
+    _, objs, scaling_s = tool_run(bench_scaling.main, [
+        "--backend", "cuda", "--ranks-per-card", "2", "--max-ranks", "2"])
+    srows = [o for o in objs if "devices" in o]
+    check([r["devices"] for r in srows] == [1, 2], f"bench_scaling: rows {srows}")
+    for r in srows:
+        check(r["rays_per_s"] > 0 and 0 <= r["collective_frac_of_busy"] <= 1,
+              f"bench_scaling: {r}")
+    seconds = time.perf_counter() - t_phase
+    emit("tools_phase", seconds=seconds, bench_scenes_s=scenes_s, bench_s=bench_s,
+         bench_scaling_s=scaling_s, card=card)
+    return seconds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -672,6 +806,7 @@ def main() -> int:
         return 2
     import rtweekend_tpu_torch  # noqa: F401  (sets fp32 matmul policy)
     from rtweekend_tpu_torch.config import SCENE_DEFAULTS, RenderConfig
+    from rtweekend_tpu_torch.device import describe
     from rtweekend_tpu_torch.models import builders
     from rtweekend_tpu_torch.models.builders import build_scene
     from rtweekend_tpu_torch.ops.cuda import build
@@ -684,8 +819,10 @@ def main() -> int:
     from rtweekend_tpu_torch.parallel import shard
     from rtweekend_tpu_torch.utils import image as image_mod
     from rtweekend_tpu_torch.utils import trace_report
+    from rtweekend_tpu_torch.utils.roofline import HBM_BYTES_S
     from rtweekend_tpu_torch import checkpoint, cli
     from rtweekend_tpu_torch.ops import integrator
+    from rtweekend_tpu_torch.tools import bench, bench_scaling, bench_scenes, parity  # noqa: F401
 
     for mod in list(sys.modules):
         check(not (mod == "jax" or mod.startswith("jax.") or mod == "rtweekend_tpu"
@@ -693,11 +830,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    card = smi
+    smi = card = describe(dev)
 
     # ---- 1. device + kernel build ----
     _, built = build.load()
@@ -1399,6 +1532,12 @@ def main() -> int:
 
     # ---- 19. multi-device: NCCL at world size 1, two gloo ranks on the card ----
     multidevice_phase(dev, card, main_caps)
+
+    # ---- 20. parity: the BASELINE configs against the TPU's committed renders ----
+    parity_phase(dev, card)
+
+    # ---- 21. the tools: bench_scenes, bench, bench_scaling ----
+    tools_phase(card)
 
     emit("total", seconds=time.perf_counter() - t_start)
 

@@ -21,3 +21,27 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def describe(dev: torch.device) -> str:
+    """What a measurement ran on: for the card, `nvidia-smi`'s name and power
+    limit (a card set below its maximum runs slower under load); "cpu"
+    otherwise. The card is named to nvidia-smi by its UUID: nvidia-smi
+    numbers cards in PCI order and ignores CUDA_VISIBLE_DEVICES, so its
+    index need not be the CUDA ordinal."""
+    if dev.type != "cuda":
+        return "cpu"
+    import subprocess
+
+    uuid = torch.cuda.get_device_properties(
+        torch.cuda.current_device() if dev.index is None else dev.index).uuid
+    return subprocess.run(
+        ["nvidia-smi", f"--id=GPU-{uuid}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work; the CPU's is already done."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

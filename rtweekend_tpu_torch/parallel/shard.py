@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from rtweekend_tpu_torch.device import synchronize
 from rtweekend_tpu_torch.models.scene import Scene
 from rtweekend_tpu_torch.ops import integrator
 from rtweekend_tpu_torch.ops.camera import Camera
@@ -216,11 +217,6 @@ def _all_reduce_grads(grads: dict) -> dict:
     return out
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def sharded_train_step(scene: Scene, camera: Camera, target, width: int, height: int,
                        samples_per_pixel: int, max_depth: int, background, seed: int,
                        mesh: DeviceMesh | None = None, lr: float = 0.01, *,
@@ -266,12 +262,12 @@ def sharded_train_step(scene: Scene, camera: Camera, target, width: int, height:
 
     def tick(key, t0):
         if timings is not None:
-            _sync(dev)
+            synchronize(dev)
             clock[key] += time.perf_counter() - t0
         return time.perf_counter()
 
     if timings is not None:
-        _sync(dev)
+        synchronize(dev)
     t0 = time.perf_counter()
     if not use_pallas:
         kernel = "eager"

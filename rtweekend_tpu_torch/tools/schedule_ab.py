@@ -28,13 +28,13 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 
 import torch
 
 from rtweekend_tpu_torch import render as render_mod
 from rtweekend_tpu_torch.config import SCENE_DEFAULTS, RenderConfig
+from rtweekend_tpu_torch.device import describe
 from rtweekend_tpu_torch.ops.cuda import build
 from rtweekend_tpu_torch.ops.cuda import megakernel as mk
 from rtweekend_tpu_torch.utils.profiling import device_profile
@@ -111,9 +111,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("schedule_ab: no CUDA device")
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = describe(torch.device("cuda"))
     print(card, flush=True)
     build.load()
     torch.zeros(1, device="cuda")
