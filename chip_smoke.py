@@ -124,6 +124,15 @@ Phases, each printed as one JSON line:
                ranks sharing the card (rows k = 1, 2, positive rays/s, a
                collective share of busy time in [0, 1]), their output
                echoed.
+ 22. native    the host image runtime (utils/native.py): the compiler,
+               its build seconds and zlib's version; the four TPU artifacts'
+               pixels re-encoded byte-equal to the committed files (where
+               zlib is another release than ARTIFACT_ZLIB, a PNG's inflated
+               IDAT stream equal instead); phase 5's image through
+               write_png / write_ppm byte-equal to the plain encoders and
+               read back equal; host ms of each native encoder (median of
+               5) and of its plain version (the one call that checks it)
+               at 1200x675.
 Every scene's schedule (its CPU probe) is computed after phase 1, before
 any timed render: host set-up cached per scene, like the kernel build.
 Kernel times are device time only: the launches are enqueued behind a
@@ -170,6 +179,7 @@ GOLDEN_GRAD_W, GOLDEN_GRAD_H = 60, 40
 SCENES_SPP = 16
 CKPT_SPP = 16            # the checkpointed render: 16 batches, a save every 4
 TRAIN_EAGER_SPP = 2
+ARTIFACT_ZLIB = "1.2.13"  # a zlib release whose deflate reproduces artifacts/'s PNGs
 # phase 19: two ranks sharing the card over gloo; golden_scene's step at
 # 2 spp; the shape of __graft_entry__.dryrun_multichip (simple_light 16x16,
 # 4 spp, depth 4, mesh (1, 2), rays_per_chunk 64: two winner blocks a rank)
@@ -796,6 +806,85 @@ def tools_phase(card):
     return seconds
 
 
+def native_phase(card, img, reps=5):
+    """Phase 22: the host image runtime (utils/native.py) against the
+    committed TPU artifacts and its plain versions, on phase 5's image
+    `img` (uint8 on the host). Returns the phase's seconds."""
+    import statistics
+    import zlib
+
+    import numpy as np
+
+    from rtweekend_tpu_torch.tools import parity
+    from rtweekend_tpu_torch.utils import image as image_mod
+    from rtweekend_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    _, built = native.load()
+    cxx = subprocess.run([built.compiler, "--version"], capture_output=True, text=True)
+    zlib_version = zlib.ZLIB_RUNTIME_VERSION
+    emit("native_build", compiler=built.compiler, compiler_version=cxx.stdout.split("\n")[0],
+         lib=os.path.relpath(built.path), build_s=built.seconds, zlib=zlib_version, card=card)
+
+    def idat_stream(data):
+        return zlib.decompress(b"".join(c for tag, c in image_mod._png_chunks(data)
+                                        if tag == b"IDAT"))
+
+    for key, row in parity.tpu_rows().items():
+        path = row["artifact"]
+        pixels = image_mod.read_rgb(path)
+        with open(path, "rb") as f:
+            want = f.read()
+        is_ppm = path.endswith(".ppm")
+        got = native.ppm_encode(pixels) if is_ppm else native.png_encode(pixels)
+        match = "bytes" if got == want else None
+        if match is None and not is_ppm and zlib_version != ARTIFACT_ZLIB:
+            # deflate's output is stable only within a zlib release
+            match = "inflated" if idat_stream(got) == idat_stream(want) else None
+        emit("native_artifact", config=key, artifact=os.path.relpath(path),
+             shape=list(pixels.shape), bytes=len(want), encoded_bytes=len(got), match=match,
+             zlib=zlib_version, card=card)
+        check(match is not None, f"native: {path} re-encoded to {len(got)} bytes, not its "
+                                 f"own {len(want)} (zlib {zlib_version})")
+
+    # phase 5's image through the writers, against the plain encoders,
+    # each plain encoder timed in the one call that checks it
+    stem = os.path.join(OUT_DIR, "chip_smoke_final_scene_native")
+    image_mod.write_png(stem + ".png", img)
+    image_mod.write_ppm(stem + ".ppm", img)
+    with open(stem + ".png", "rb") as f:
+        png = f.read()
+    with open(stem + ".ppm", "rb") as f:
+        ppm = f.read()
+
+    def timed_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    png_plain, png_plain_ms = timed_ms(lambda: native.png_encode_plain(img))
+    ppm_plain, ppm_plain_ms = timed_ms(lambda: native.ppm_encode_plain(img))
+    check(png == png_plain, "native: write_png differs from the plain encoder")
+    check(ppm == ppm_plain, "native: write_ppm differs from the plain encoder")
+    check(np.array_equal(image_mod.read_png(stem + ".png"), img)
+          and np.array_equal(image_mod.read_ppm(stem + ".ppm"), img),
+          "native: the written image does not read back equal")
+
+    # host ms of each native encoder, in turns
+    fns = {"png": lambda: native.png_encode(img), "ppm": lambda: native.ppm_encode(img)}
+    ms = {k: [] for k in fns}
+    for r in range(reps):
+        for k, fn in (fns.items() if r % 2 == 0 else reversed(fns.items())):
+            ms[k].append(timed_ms(fn)[1])
+    h, w, _ = img.shape
+    seconds = time.perf_counter() - t_phase
+    emit("native", width=w, height=h, png_bytes=len(png), ppm_bytes=len(ppm), reps=reps,
+         **{f"{k}_ms": statistics.median(v) for k, v in ms.items()},
+         **{f"{k}_ms_range": [min(v), max(v)] for k, v in ms.items()},
+         png_plain_ms=png_plain_ms, ppm_plain_ms=ppm_plain_ms, seconds=seconds, card=card)
+    return seconds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1004,6 +1093,7 @@ def main() -> int:
           f"shape {tuple(accum.shape)}")
     check(bool(torch.isfinite(accum).all().item()), "non-finite framebuffer")
     check(float(accum.mean().item()) > 0.1 * MAIN_SPP, "framebuffer implausibly dark")
+    main_img = img   # phase 22's input
     png = os.path.join(OUT_DIR, "chip_smoke_final_scene.png")
     image_mod.write_png(png, img)
     emit("main", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=MAIN_SPP,
@@ -1538,6 +1628,9 @@ def main() -> int:
 
     # ---- 21. the tools: bench_scenes, bench, bench_scaling ----
     tools_phase(card)
+
+    # ---- 22. the host image runtime: artifacts, plain encoders ----
+    native_phase(card, main_img)
 
     emit("total", seconds=time.perf_counter() - t_start)
 

@@ -2,10 +2,11 @@
 
 `nvcc` compiles `csrc/*.cu` for sm_90a into a shared library with a
 plain C interface, loaded with ctypes. The library lands in
-`build/kernels/` beside the package, named by a hash of the sources and
-flags, so the first call in a fresh checkout builds it (seconds) and
-later calls reuse it. Nothing here runs at import time; a failed build
-raises and is never caught on the way to the caller.
+`build/kernels/` beside the package, named by a hash of nvcc's version,
+the flags and the sources (utils/shlib.py), so the first call in a fresh
+checkout builds it (seconds) and later calls reuse it. Nothing here runs
+at import time; a failed build raises and is never caught on the way to
+the caller.
 """
 
 from __future__ import annotations
@@ -13,13 +14,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
+
+from rtweekend_tpu_torch.utils.shlib import build_shared
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -49,25 +48,8 @@ def _nvcc() -> str:
 
 
 def build() -> Built:
-    srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    out = BUILD_DIR / f"rtw_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return Built(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
+    out, seconds, log = build_shared(_nvcc(), NVCC_FLAGS, [CSRC / s for s in SOURCES],
+                                     BUILD_DIR, "rtw_kernels")
     return Built(out, seconds, log)
 
 

@@ -1,9 +1,9 @@
 """Tone mapping and image I/O (reference src/main.zig:395-405).
 
 The tone map runs on the framebuffer's device; encoding runs on the host
-with Pillow when it is installed, else a minimal zlib PNG encoder. The
-readers of 8-bit PNG and PPM (`read_png`, `read_ppm`, `read_rgb`) need
-only zlib and numpy.
+through the native encoder (`utils/native.py`, built at first use with the
+host C++ compiler), never Pillow. The readers of 8-bit PNG and PPM
+(`read_png`, `read_ppm`, `read_rgb`) need only zlib and numpy.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from rtweekend_tpu_torch.utils import native
 
 
 def tonemap(accum: torch.Tensor, samples_per_pixel: int) -> torch.Tensor:
@@ -28,42 +30,16 @@ def tonemap_f(accum: torch.Tensor, samples_per_pixel: int) -> torch.Tensor:
 
 
 def write_ppm(path, pixels_u8):
-    """Plain-text P3 PPM."""
-    arr = np.asarray(pixels_u8)
-    h, w, _ = arr.shape
-    lines = [f"P3\n{w} {h}\n255\n"]
-    lines.extend(f"{r} {g} {b}\n" for r, g, b in arr.reshape(-1, 3))
-    with open(path, "w") as f:
-        f.writelines(lines)
+    """Plain-text P3 PPM, written by the native encoder (utils/native.py)."""
+    with open(path, "wb") as f:
+        f.write(native.ppm_encode(pixels_u8))
 
 
 def write_png(path, pixels_u8):
-    """PNG encode with Pillow if installed, else the built-in encoder."""
-    arr = np.ascontiguousarray(np.asarray(pixels_u8), dtype=np.uint8)
-    try:
-        from PIL import Image
-    except ImportError:
-        _write_png_minimal(path, arr)
-        return
-    Image.fromarray(arr).save(path, format="PNG")
-
-
-def _png_chunk(tag, data):
-    chunk = tag + data
-    return struct.pack(">I", len(data)) + chunk + struct.pack(
-        ">I", zlib.crc32(chunk) & 0xFFFFFFFF
-    )
-
-
-def _write_png_minimal(path, arr):
-    h, w, _ = arr.shape
-    raw = b"".join(b"\x00" + arr[i].tobytes() for i in range(h))
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    """8-bit RGB PNG, Paeth-filtered rows at deflate level 6, written by the
+    native encoder (utils/native.py): the JAX package's bytes."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", ihdr))
-        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 9)))
-        f.write(_png_chunk(b"IEND", b""))
+        f.write(native.png_encode(pixels_u8))
 
 
 def _png_chunks(data: bytes):
