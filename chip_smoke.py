@@ -20,10 +20,16 @@ Phases, each printed as one JSON line:
                over-tight schedule raises the overflow flag, and the render
                driver recovers it;
   4. render    a small render through the kernel against the same render
-               through the plain version (channel means);
+               through the plain version (channel means); the plain render
+               makes its rays with the PyTorch ops, launching no
+               raygen_kernel;
   5. main      render_image of final_scene at 1200x675, depth 50, through
-               the normal entry point, with the kernel's launch count;
-               the image goes to smoke_out/;
+               the normal entry point, with the kernels' launch counts
+               (raygen_kernel at least once a batch); the image goes to
+               smoke_out/; then `raygen`: raygen_kernel's state for one
+               1-spp batch of that render (810,000 rays) bit-equal to
+               init_state of the PyTorch camera ops, the device ms of both
+               and the kernel's byte bound;
   6. profile   the main path once more under torch.profiler: device time
                by kernel and the card's idle share;
   7. scenes    render_image of every scene at its own default size, depth
@@ -902,7 +908,7 @@ def main() -> int:
     from rtweekend_tpu_torch.ops.cuda import megakernel as mk
     from rtweekend_tpu_torch import render as render_mod
     from rtweekend_tpu_torch.grad import make_loss
-    from rtweekend_tpu_torch.ops.camera import generate_rays
+    from rtweekend_tpu_torch.ops.camera import batch_rays, generate_rays
     from rtweekend_tpu_torch.ops.cuda import vjp
     from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
     from rtweekend_tpu_torch.parallel import shard
@@ -986,8 +992,7 @@ def main() -> int:
         tables = mk.pack_scene(scene)
         bg = SCENE_DEFAULTS[name]["background"]
         cam = render_mod.camera_for_scene(name, width / height, dev)
-        o, d, t, pid, sid = render_mod._gen_batch_rays(
-            cam, 42, 0, width=width, height=height, n_samples=1)
+        o, d, t, pid, sid = batch_rays(cam, 42, 0, width=width, height=height, n_samples=1)
         n = o.shape[0]
         state = mk.init_state(o, d, t, pid, sid)
         count = torch.tensor(n, device=dev)
@@ -1042,8 +1047,8 @@ def main() -> int:
     # ---- 3. compaction on the card ----
     o, d, t, pid, sid = rays("final_scene", 32, 16 / 9, 2500)
     full = mk.trace_paths(tables, o, d, t, pid, sid, 42, bg, 9, kernel="cuda")
-    comp, ovf = mk.trace_paths_compact(tables, o, d, t, pid, sid, 42, bg, 9,
-                                       capacities=((1, 0.9), (3, 0.5), (6, 0.3)),
+    comp, ovf = mk.trace_paths_compact(tables, mk.init_state(o, d, t, pid, sid), len(pid),
+                                       42, bg, 9, capacities=((1, 0.9), (3, 0.5), (6, 0.3)),
                                        kernel="cuda")
     check(not ovf.item(), "compaction overflowed on a roomy schedule")
     check(torch.equal(comp, full), "compacted != uncompacted")
@@ -1051,8 +1056,8 @@ def main() -> int:
     ctab = mk.pack_scene(cb)
     ccam = render_mod.camera_for_scene("cornell_box", 1.0, dev)
     o, d, t, pid, sid = rays("cornell_box", 32, 1.0, 4096)
-    _, ovf = mk.trace_paths_compact(ctab, o, d, t, pid, sid, 42, (0.0, 0.0, 0.0), 6,
-                                    capacities=((2, 0.1),), kernel="cuda")
+    _, ovf = mk.trace_paths_compact(ctab, mk.init_state(o, d, t, pid, sid), len(pid), 42,
+                                    (0.0, 0.0, 0.0), 6, capacities=((2, 0.1),), kernel="cuda")
     check(bool(ovf.item()), "over-tight schedule did not raise the overflow flag")
     fb = render_mod.render(cb, ccam, 16, 16, 4, 6, (0.0, 0.0, 0.0), 42,
                            capacities=((2, 0.1),), kernel="cuda")
@@ -1065,8 +1070,12 @@ def main() -> int:
     # ---- 4. small render, kernel vs plain ----
     cfg = RenderConfig(scene="final_scene", width=96, height=54, samples_per_pixel=4,
                        max_depth=12)
+    mk.reset_launch_counts()
     img_k, acc_k = render_mod.render_image(cfg, device=dev, kernel="cuda")
+    check(mk.launch_counts()["raygen_launches"] > 0, "the kernel render launched no raygen_kernel")
+    mk.reset_launch_counts()
     img_p, acc_p = render_mod.render_image(cfg, device=dev, kernel="torch")
+    check(mk.launch_counts()["raygen_launches"] == 0, "the plain render launched raygen_kernel")
     mk_means = acc_k.reshape(-1, 3).double().mean(0)
     mp_means = acc_p.reshape(-1, 3).double().mean(0)
     rel = ((mk_means - mp_means).abs() / mp_means).max().item()
@@ -1088,6 +1097,12 @@ def main() -> int:
     counts = mk.launch_counts()
     launches = counts["launches"]
     check(launches > 0, "main path launched no bounce kernel")
+    main_batches = -(-MAIN_SPP // render_mod.batch_size(MAIN_W * MAIN_H, MAIN_SPP,
+                                                        cfg.rays_per_chunk))
+    main_raygen_launches = counts["raygen_launches"]
+    # one a batch, one more for each batch whose compaction overflowed
+    check(main_raygen_launches >= main_batches,
+          f"main path: {main_raygen_launches} raygen launches for {main_batches} batches")
     check(counts["winners_launches"] == 0, "the render path launched winners")
     check(accum.shape == (MAIN_H, MAIN_W, 3) and img.shape == (MAIN_H, MAIN_W, 3),
           f"shape {tuple(accum.shape)}")
@@ -1098,8 +1113,35 @@ def main() -> int:
     image_mod.write_png(png, img)
     emit("main", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=MAIN_SPP,
          depth=MAIN_DEPTH, wall_s=wall, primary_rays_per_s=MAIN_W * MAIN_H * MAIN_SPP / wall,
-         launches=launches, peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         capacities=main_caps, png=png, card=card)
+         launches=launches, raygen_launches=main_raygen_launches, batches=main_batches,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), capacities=main_caps, png=png,
+         card=card)
+
+    # raygen_kernel at the main path's batch shape, against the PyTorch ops
+    rcam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
+    rkw = dict(width=MAIN_W, height=MAIN_H, n_samples=1)
+    host_cam = mk.camera_floats(rcam)
+
+    def raygen():
+        return mk.ray_state(rcam, 42, 0, host_camera=host_cam, **rkw)
+
+    def raygen_plain():
+        return mk.init_state(*batch_rays(rcam, 42, 0, **rkw))
+
+    mk.reset_launch_counts()
+    rg_got = raygen()
+    check(mk.launch_counts()["raygen_launches"] == 1, "ray_state did not launch raygen_kernel")
+    rg_want = raygen_plain()
+    raygen_max_abs = (rg_got - rg_want).abs().max().item()
+    check(torch.equal(rg_got.view(torch.int32), rg_want.view(torch.int32)),
+          f"raygen_kernel's state differs from the PyTorch ops' (max abs {raygen_max_abs})")
+    raygen_ms, raygen_host_ms = gpu_ms(raygen, 20)
+    raygen_plain_ms = synced_ms(raygen_plain, 5)
+    raygen_bound_ms = rg_got.numel() * rg_got.element_size() / HBM_BYTES_S * 1e3   # rows written
+    emit("raygen", scene="final_scene", width=MAIN_W, height=MAIN_H, spp=1,
+         rays=MAIN_W * MAIN_H, rows=rg_got.shape[0], bit_equal=True, ms=raygen_ms,
+         host_ms=raygen_host_ms, plain_ms=raygen_plain_ms, bound_ms=raygen_bound_ms,
+         roofline_share=raygen_bound_ms / raygen_ms, card=card)
 
     # ---- 6. where the main path's device time goes ----
     emit("profile", **profile_fn(lambda: render_mod.render_image(RenderConfig(
@@ -1188,8 +1230,7 @@ def main() -> int:
         gscene = build_scene(name, device=dev)
         gcam = render_mod.camera_for_scene(name, width / height, dev)
         gbg = SCENE_DEFAULTS[name]["background"]
-        grays = render_mod._gen_batch_rays(gcam, 42, 0, width=width, height=height,
-                                           n_samples=GRAD_SPP)
+        grays = batch_rays(gcam, 42, 0, width=width, height=height, n_samples=GRAD_SPP)
         gtarget = torch.full((height, width, 3), 0.5, device=dev)
         wins = {kern: vjp.kernel_winners(gscene, *grays, 42, gbg, GRAD_DEPTH,
                                          kernel=kern)[1]
@@ -1242,8 +1283,7 @@ def main() -> int:
 
     # ---- the winners variant at the train step's pass-2 shape ----
     tcam = render_mod.camera_for_scene("final_scene", MAIN_W / MAIN_H, dev)
-    o, d, t, pid, sid = render_mod._gen_batch_rays(tcam, 42, 0, width=MAIN_W,
-                                                   height=MAIN_H, n_samples=1)
+    o, d, t, pid, sid = batch_rays(tcam, 42, 0, width=MAIN_W, height=MAIN_H, n_samples=1)
     pstate = mk.init_state(o, d, t, pid, sid)
     _, _, win_plain_ms, win_res = winners_check(
         mk, tables, pstate, bg, MAIN_DEPTH, f"pass-2 shape {pstate.shape[0]} lanes winners")
@@ -1589,8 +1629,8 @@ def main() -> int:
     for dtype in (torch.float64, torch.float32):
         gs = build_scene(tname, device=dev, dtype=dtype)
         gcam = render_mod.camera_for_scene(tname, GOLDEN_GRAD_W / GOLDEN_GRAD_H, dev, dtype)
-        grays = render_mod._gen_batch_rays(gcam, 42, 0, width=GOLDEN_GRAD_W,
-                                           height=GOLDEN_GRAD_H, n_samples=GRAD_SPP)
+        grays = batch_rays(gcam, 42, 0, width=GOLDEN_GRAD_W, height=GOLDEN_GRAD_H,
+                           n_samples=GRAD_SPP)
         kwin = vjp.kernel_winners(build_scene(tname, device=dev), *[
             x.float() if x.is_floating_point() else x for x in grays], 42, tp["background"],
             GRAD_DEPTH, kernel="cuda")[1]
@@ -1667,12 +1707,28 @@ def main() -> int:
         "bound_by": "operations" if win_bnd["ops_ms"] >= win_bnd["bytes_ms"] else "bytes",
         "library_ms": None,
     }
+    raygen_entry = {
+        "name": "raygen_kernel",
+        "route": "cuda",
+        "source": "rtweekend_tpu_torch/csrc/megakernel.cu",
+        # port-only: the JAX package makes a batch's rays and state with
+        # jnp ops (ops/camera.generate_rays, ops/pallas/megakernel._init_state)
+        "replaces": None,
+        "launches": main_raygen_launches,
+        "max_abs_err": raygen_max_abs,
+        "ms": raygen_ms,
+        "plain_ms": raygen_plain_ms,
+        "bound_ms": raygen_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
     kernels = [
         entry("megakernel", launches, segs),
         winners_entry,
         entry("megakernel_noise", variant_launches["noise"], variant_segs["noise"]),
         entry("megakernel_image", variant_launches["image"], variant_segs["image"]),
         entry("megakernel_sky", variant_launches["sky"], variant_segs["sky"]),
+        raygen_entry,
     ]
     for k in kernels:
         check(isinstance(k["launches"], int) and k["launches"] > 0,

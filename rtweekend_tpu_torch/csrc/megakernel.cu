@@ -1,6 +1,8 @@
 // Bounce megakernel for Hopper (sm_90a): the CUDA counterpart of the TPU
 // kernel rtweekend_tpu/ops/pallas/megakernel.py:_make_kernel, launched
-// there by _trace_segment (pl.pallas_call at megakernel.py:1050).
+// there by _trace_segment (pl.pallas_call at megakernel.py:1050). The
+// same library holds raygen_kernel, a render batch's camera rays (see its
+// note below the bounce kernel).
 //
 // What it computes: for every ray of the buffer, up to n_bounces path-
 // tracing bounces starting at global bounce b0 — closest hit over all
@@ -829,6 +831,97 @@ KernelFn pick_kernel(int variant, bool winners) {
   return winners ? pick_kernel<true>(variant) : pick_kernel<false>(variant);
 }
 
+// ---- camera ray generation ----
+//
+// raygen_kernel writes a render batch's initial state [m, SW], the rows
+// that init_state(*generate_rays(...)) builds from PyTorch ops
+// (ops/cuda/megakernel.py, ops/camera.py), in one launch that the host
+// never waits on. It replaces no TPU kernel: the JAX package generates
+// rays with jnp ops that XLA fuses (rtweekend_tpu/ops/camera.py). Eager
+// PyTorch ran the same function as ~330 small launches a batch (PCG4D
+// carried in masked int64) with host syncs between them.
+//
+// Row r < n is ray r of the batch: pixel p0 + r / n_samples, sample
+// sample_start + r % n_samples (pixel-major, as ops/camera.batch_rays);
+// rows n <= r < m are dead padding. The rows are bit-equal to what
+// PyTorch's CUDA kernels compute for generate_rays + init_state. Each
+// eager op rounds once, so every float op here is a round-to-nearest
+// intrinsic (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts
+// into an FMA. sqrtf, cosf and sinf are the accurate versions that
+// PyTorch's kernels call (no fast math). A tensor divided by a Python
+// float runs on the card as a multiply by the float32 reciprocal that
+// PyTorch computes on the host: the wrapper passes it (inv_w, inv_h).
+//
+// Bound: 56 bytes written a row (45.4 MB for the 811,008 rows of a
+// 1200x675 batch, 13.6 us at 3.35 TB/s) against ~150 arithmetic
+// operations a row (two PCG4D hashes, a cosine and a sine, 25 float ops):
+// the writes bound it. A block stages its 256 rows in shared memory, so
+// that consecutive threads store consecutive words.
+constexpr int RAYGEN_BLOCK = 256;
+constexpr uint32_t STREAM_CAMERA0 = 0xC0FFEE00u;  // utils/rng.py
+constexpr uint32_t STREAM_CAMERA1 = 0xC0FFEE01u;
+
+struct RaygenParams {
+  float* state;          // [m, SW]
+  int n;                 // rays; rows n .. m - 1 are dead
+  int m;
+  int p0;                // the first pixel id
+  int sample_start;
+  int n_samples;         // samples a pixel
+  int width;
+  float inv_w, inv_h;    // float32 1 / float32(width - 1), and for height
+  uint32_t seed;
+  float origin[3], horizontal[3], vertical[3], lower_left[3], u[3], v[3];
+  float lens_radius, time0, time1;
+};
+
+__global__ void __launch_bounds__(RAYGEN_BLOCK) raygen_kernel(const RaygenParams p) {
+  __shared__ float rows[RAYGEN_BLOCK * SW];
+  const int first = blockIdx.x * RAYGEN_BLOCK;
+  const int r = first + (int)threadIdx.x;
+  float* row = rows + threadIdx.x * SW;
+  if (r < p.n) {
+    const int pid = p.p0 + r / p.n_samples;
+    const int sid = p.sample_start + r % p.n_samples;
+    uint32_t x0 = (uint32_t)pid, y0 = (uint32_t)sid, z0 = STREAM_CAMERA0, w0 = p.seed;
+    pcg4d(x0, y0, z0, w0);
+    uint32_t x1 = (uint32_t)pid, y1 = (uint32_t)sid, z1 = STREAM_CAMERA1, w1 = p.seed;
+    pcg4d(x1, y1, z1, w1);
+    // generate_rays (ops/camera.py), op for op
+    const float s = __fmul_rn(__fadd_rn((float)(pid % p.width), to_unit(x0)), p.inv_w);
+    const float t = __fmul_rn(__fadd_rn((float)(pid / p.width), to_unit(y0)), p.inv_h);
+    const float rad = sqrtf(to_unit(z0));
+    const float theta = __fmul_rn((float)(2.0 * 3.141592653589793), to_unit(w0));
+    const float rd0 = __fmul_rn(__fmul_rn(rad, cosf(theta)), p.lens_radius);
+    const float rd1 = __fmul_rn(__fmul_rn(rad, sinf(theta)), p.lens_radius);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float off = __fadd_rn(__fmul_rn(p.u[k], rd0), __fmul_rn(p.v[k], rd1));
+      row[S_OX + k] = __fadd_rn(p.origin[k], off);
+      const float d = __fadd_rn(__fadd_rn(p.lower_left[k], __fmul_rn(s, p.horizontal[k])),
+                                __fmul_rn(t, p.vertical[k]));
+      row[S_DX + k] = __fsub_rn(__fsub_rn(d, p.origin[k]), off);
+    }
+    row[S_TM] = __fadd_rn(p.time0, __fmul_rn(to_unit(x1), __fsub_rn(p.time1, p.time0)));
+    row[S_PID] = __int_as_float(pid);
+    row[S_SID] = __int_as_float(sid);
+    row[S_AL] = 1.0f;
+  } else {
+#pragma unroll
+    for (int c = S_OX; c <= S_SID; ++c) row[c] = 0.0f;
+    row[S_DZ] = 1.0f;
+    row[S_AL] = 0.0f;
+  }
+  row[S_TR] = 1.0f;
+  row[S_TG] = 1.0f;
+  row[S_TB] = 1.0f;
+  row[S_RID] = __int_as_float(r);
+  __syncthreads();
+  const int words = min(RAYGEN_BLOCK, p.m - first) * SW;
+  float* out = p.state + (size_t)first * SW;
+  for (int k = threadIdx.x; k < words; k += RAYGEN_BLOCK) out[k] = rows[k];
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/cuda/megakernel.py).
@@ -895,6 +988,38 @@ extern "C" int rtw_bounce_segment(
   p.counter = static_cast<int*>(counter);
   return (int)launch(pick_kernel(variant, winners != nullptr), p, blocks,
                      static_cast<cudaStream_t>(stream));
+}
+
+// rtw_raygen: one launch of raygen_kernel on `stream` over the m rows of
+// `state` ([m, 14] float32 device memory); allocates nothing, does not
+// synchronise, returns the cudaError_t of the launch. `camera` is a host
+// array of 21 floats: origin, horizontal, vertical, lower_left, u, v (3
+// each), lens_radius, time0, time1.
+extern "C" int rtw_raygen(void* state, int n, int m, int p0, int sample_start,
+                          int n_samples, int width, float inv_w, float inv_h,
+                          unsigned int seed, const float* camera, void* stream) {
+  if (n < 0 || m < n || m < 1 || n_samples < 1 || width < 1)
+    return (int)cudaErrorInvalidValue;
+  RaygenParams p;
+  p.state = static_cast<float*>(state);
+  p.n = n;
+  p.m = m;
+  p.p0 = p0;
+  p.sample_start = sample_start;
+  p.n_samples = n_samples;
+  p.width = width;
+  p.inv_w = inv_w;
+  p.inv_h = inv_h;
+  p.seed = seed;
+  float* vecs[6] = {p.origin, p.horizontal, p.vertical, p.lower_left, p.u, p.v};
+  for (int q = 0; q < 6; ++q)
+    for (int k = 0; k < 3; ++k) vecs[q][k] = camera[3 * q + k];
+  p.lens_radius = camera[18];
+  p.time0 = camera[19];
+  p.time1 = camera[20];
+  const unsigned blocks = (unsigned)((m + RAYGEN_BLOCK - 1) / RAYGEN_BLOCK);
+  raygen_kernel<<<blocks, RAYGEN_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* rtw_error_string(int code) {

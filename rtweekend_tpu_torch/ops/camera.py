@@ -2,7 +2,8 @@
 
 `make_camera` is the reference's Camera.init, computed on the host in
 numpy (float32 or float64) with the JAX package's op sequence; `generate_rays` is the
-batched getRay plus per-sample pixel jitter, with counter-RNG draws.
+batched getRay plus per-sample pixel jitter, with counter-RNG draws; `batch_rays` the
+rays of one sample batch of a render.
 """
 
 from __future__ import annotations
@@ -105,3 +106,21 @@ def generate_rays(camera: Camera, width: int, height: int, pixel_ids, sample_ids
     )
     times = camera.time0 + u1[:, 0] * (camera.time1 - camera.time0)
     return origins, dirs, times
+
+
+def batch_rays(camera: Camera, seed: int, sample_start: int, *,
+               width: int, height: int, n_samples: int, pixels=None):
+    """The rays of every pixel of the id range `pixels` = (start, stop)
+    (default: the whole image) with samples sample_start ..
+    sample_start + n_samples - 1, pixel-major: (origins, dirs, times,
+    pixel_ids, sample_ids)."""
+    dev = camera.origin.device
+    p0, p1 = (0, width * height) if pixels is None else pixels
+    pixel_ids = torch.arange(p0, p1, dtype=torch.int32, device=dev).repeat_interleave(
+        n_samples
+    )
+    sample_ids = sample_start + torch.arange(
+        n_samples, dtype=torch.int32, device=dev
+    ).repeat(p1 - p0)
+    o, d, t = generate_rays(camera, width, height, pixel_ids, sample_ids, seed)
+    return o, d, t, pixel_ids, sample_ids

@@ -76,6 +76,13 @@ def bind(lib):
         p,              # stream
     ]
     lib.rtw_bounce_segment.restype = ctypes.c_int
+    lib.rtw_raygen.argtypes = [
+        p, i, i,        # state, n, m
+        i, i, i, i,     # p0, sample_start, n_samples, width
+        f, f, u,        # inv_w, inv_h, seed
+        ctypes.POINTER(f), p,  # camera (21 host floats), stream
+    ]
+    lib.rtw_raygen.restype = ctypes.c_int
     lib.rtw_bounce_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.rtw_bounce_blocks_per_sm.restype = ctypes.c_int
     lib.rtw_error_string.argtypes = [ctypes.c_int]

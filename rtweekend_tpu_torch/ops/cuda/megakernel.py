@@ -11,7 +11,9 @@ its (8, 128) tiles; `trace_segment` uses it for CPU tensors only.
 Ray state is one [m, 14] float32 buffer, one row per ray (columns in
 STATE_FIELDS order; the int32 fields pid, sid and ray_id ride bit-cast).
 Compaction is then a single row gather, and the kernel reads and writes
-56 contiguous bytes per ray.
+56 contiguous bytes per ray. `ray_state` makes a render batch's state:
+on the card in one launch of `raygen_kernel` (csrc/megakernel.cu), which
+the host never waits on; elsewhere from the camera's PyTorch ops.
 
 The compacted driver (`trace_paths_compact`) traces a few bounces per
 launch and gathers the survivors into a smaller buffer between launches.
@@ -42,6 +44,7 @@ from rtweekend_tpu_torch.models.scene import (
     Scene,
 )
 from rtweekend_tpu_torch.ops import coeffs
+from rtweekend_tpu_torch.ops.camera import Camera, batch_rays
 from rtweekend_tpu_torch.ops.coeffs import BIG, NF, T_MIN
 from rtweekend_tpu_torch.utils import rng as rng_mod
 
@@ -228,6 +231,73 @@ def init_state(origins, dirs, times, pixel_ids, sample_ids) -> torch.Tensor:
     st[:n, S_AL] = 1.0
     st[:, S_RID] = torch.arange(m, dtype=torch.int32, device=dev).view(torch.float32)
     return st
+
+
+def state_rays(state, n: int):
+    """The first n rays of a state as init_state's arguments (origins,
+    dirs, times, pixel_ids, sample_ids): column views, no copy."""
+    return (state[:n, S_OX:S_OZ + 1], state[:n, S_DX:S_DZ + 1], state[:n, S_TM],
+            _int_col(state, S_PID)[:n], _int_col(state, S_SID)[:n])
+
+
+def camera_floats(camera: Camera) -> tuple:
+    """The 21 camera values raygen_kernel takes, as host floats: origin,
+    horizontal, vertical, lower_left, u, v, lens_radius, time0, time1.
+    Reading them from the card is a sync: a caller that makes many batches
+    reads them once."""
+    c = camera
+    parts = (c.origin, c.horizontal, c.vertical, c.lower_left, c.u, c.v,
+             c.lens_radius.reshape(1), c.time0.reshape(1), c.time1.reshape(1))
+    return tuple(torch.cat(parts).to(torch.float32).cpu().tolist())
+
+
+def ray_state(camera: Camera, seed: int, sample_start: int, *, width: int, height: int,
+              n_samples: int, pixels=None, host_camera=None,
+              kernel: str = "auto") -> torch.Tensor:
+    """A render batch's [m, 14] initial state, init_state(*batch_rays(...)):
+    row r < n = (p1 - p0) * n_samples is sample sample_start + r %
+    n_samples of pixel p0 + r // n_samples, pixels = (p0, p1) (default:
+    the whole image); rows from n to m, n rounded up to a TILE multiple,
+    are dead.
+
+    kernel as in segment_fn: "auto" and "cuda" take raygen_kernel
+    (csrc/megakernel.cu) on the card, one launch, no sync, bit-equal to
+    those PyTorch ops on the card; it is float32 only, so a camera of
+    another dtype on the card raises. The CPU and "torch" (the plain
+    version) take the ops themselves. host_camera is
+    camera_floats(camera), which a caller making many batches reads once;
+    None reads it here. LAUNCHES["raygen_launches"] counts the kernel's
+    launches."""
+    dev = camera.origin.device
+    # segment_fn checks the choice: "cuda" off the card raises
+    if segment_fn(kernel, dev) is trace_segment_plain or dev.type != "cuda":
+        return init_state(*batch_rays(camera, seed, sample_start, width=width, height=height,
+                                      n_samples=n_samples, pixels=pixels))
+    if camera.origin.dtype != torch.float32:
+        raise ValueError(f"raygen_kernel is float32 only, got a {camera.origin.dtype} camera")
+    p0, p1 = (0, width * height) if pixels is None else pixels
+    n = (p1 - p0) * n_samples
+    m = _tiles(n)
+    if m >= _MAX_RAYS:
+        raise ValueError("too many rays for one batch")
+    if host_camera is None:
+        host_camera = camera_floats(camera)
+    from rtweekend_tpu_torch.ops.cuda import build
+
+    lib, _ = build.load()
+    state = torch.empty((m, len(STATE_FIELDS)), dtype=torch.float32, device=dev)
+    # PyTorch divides a CUDA tensor by a host float as a multiply by the
+    # float32 reciprocal, computed on the host in float32
+    inv_w, inv_h = (float(np.float32(1.0) / np.float32(k - 1.0)) for k in (width, height))
+    rc = lib.rtw_raygen(state.data_ptr(), n, m, p0, sample_start, n_samples, width,
+                        inv_w, inv_h, int(seed) & 0xFFFFFFFF,
+                        (ctypes.c_float * len(host_camera))(*host_camera),
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.rtw_error_string(rc).decode()
+        raise RuntimeError(f"ray generation kernel launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES["raygen_launches"] += 1
+    return state
 
 
 def _int_col(state, k):
@@ -712,10 +782,7 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     count, the bounces and the rows scanned by launch_shape (1 or 2 for a
     full batch's short first segment, 8 for its depth-50 launch, up to 32
     for small buffers); `_group` forces G (tests). `last_shape` is the
-    (G, blocks) of the last launch. `trace_segment.launches` counts kernel
-    launches of every variant; `winners_launches`, `noise_launches`,
-    `image_launches` and `sky_launches` those of the launches with that
-    variant compiled in."""
+    (G, blocks) of the last launch. LAUNCHES counts the launches."""
     if state.device.type == "cpu":
         return trace_segment_plain(tables, state, seed, background, b0,
                                    n_bounces, t_min, want_winners=want_winners)
@@ -736,32 +803,35 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     rad, out, win = _launch(lib, tables, state, seed, bg, variant, b0, n_bounces, t_min,
                             want_winners, group, blocks, _counter(dev, stream), stream)
     trace_segment.last_shape = (group, blocks)
-    trace_segment.launches += 1
-    trace_segment.noise_launches += tables.has_noise
-    trace_segment.image_launches += tables.has_image
-    trace_segment.sky_launches += has_sky
+    LAUNCHES["launches"] += 1
+    LAUNCHES["noise_launches"] += tables.has_noise
+    LAUNCHES["image_launches"] += tables.has_image
+    LAUNCHES["sky_launches"] += has_sky
     if want_winners:
-        trace_segment.winners_launches += 1
+        LAUNCHES["winners_launches"] += 1
         return rad, out, win
     return rad, out
 
 
+# launches of the hand-written kernels, by counter: "launches" counts the
+# bounce kernel's of every variant, "winners_launches", "noise_launches",
+# "image_launches" and "sky_launches" those with that variant compiled in,
+# "raygen_launches" raygen_kernel's
 LAUNCH_COUNTS = ("launches", "winners_launches", "noise_launches", "image_launches",
-                 "sky_launches")
+                 "sky_launches", "raygen_launches")
+LAUNCHES = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 
 def reset_launch_counts():
-    """Set every launch counter of trace_segment to 0."""
-    for name in LAUNCH_COUNTS:
-        setattr(trace_segment, name, 0)
+    """Set every launch counter to 0."""
+    LAUNCHES.update(dict.fromkeys(LAUNCH_COUNTS, 0))
 
 
 def launch_counts():
-    """The launch counters of trace_segment, by name."""
-    return {name: getattr(trace_segment, name) for name in LAUNCH_COUNTS}
+    """The launch counters, by name."""
+    return dict(LAUNCHES)
 
 
-reset_launch_counts()
 trace_segment.last_shape = None
 
 KERNELS = ("auto", "cuda", "torch")
@@ -846,19 +916,19 @@ def compact(state, count, out_cap: int):
     return g, count > out_cap
 
 
-def trace_paths_compact(tables: Tables, origins, dirs, times, pixel_ids, sample_ids,
-                        seed: int, background, max_depth: int, *,
-                        capacities=CAPS_OPEN, kernel: str = "auto"):
+def trace_paths_compact(tables: Tables, state, n: int, seed: int, background,
+                        max_depth: int, *, capacities=CAPS_OPEN, kernel: str = "auto"):
     """Segmented tracing with wavefront compaction (rtweekend_tpu
-    `trace_paths_pallas_compact`). Returns (radiance [N, 3], overflow):
-    both stay on the device. The radiance is bit-equal to trace_paths
-    unless overflow is set, in which case live rays were dropped."""
-    n = origins.shape[0]
-    state = init_state(origins, dirs, times, pixel_ids, sample_ids)
+    `trace_paths_pallas_compact`) of the n rays of a state from init_state
+    or ray_state (rows past n dead; the state itself is left as it is).
+    Returns (radiance [n, 3], overflow): both stay on the device. The
+    radiance is bit-equal to trace_paths unless overflow is set, in which
+    case live rays were dropped."""
     fn = segment_fn(kernel, state.device)
     dev = state.device
     total = torch.zeros((3, state.shape[0]), dtype=torch.float32, device=dev)
-    count = torch.tensor(n, device=dev)
+    # filled on the device: torch.tensor(n, device=dev) copies from the host and syncs
+    count = torch.full((), n, dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for b0, n_b, out_cap in schedule(n, max_depth, capacities):
         if out_cap < state.shape[0]:

@@ -48,12 +48,12 @@ from torch.distributed.device_mesh import DeviceMesh
 from rtweekend_tpu_torch.device import synchronize
 from rtweekend_tpu_torch.models.scene import Scene
 from rtweekend_tpu_torch.ops import integrator
-from rtweekend_tpu_torch.ops.camera import Camera
+from rtweekend_tpu_torch.ops.camera import Camera, batch_rays
 from rtweekend_tpu_torch.ops.cuda.megakernel import pack_scene, trace_paths
 from rtweekend_tpu_torch.ops.cuda.vjp import host_background
 from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
 from rtweekend_tpu_torch.parallel.mesh import SAMPLE_AXIS, TILE_AXIS
-from rtweekend_tpu_torch.render import _gen_batch_rays, batch_size, render_range, to_framebuffer
+from rtweekend_tpu_torch.render import batch_size, render_range, to_framebuffer
 
 
 def _mesh_part(mesh: DeviceMesh, width: int, height: int, samples_per_pixel: int):
@@ -137,8 +137,8 @@ def _sample_blocks(camera, width, height, pixels, samples, seed, rays_per_chunk)
     blk = batch_size(p1 - p0, s1 - s0, rays_per_chunk)
 
     def block_rays(start):
-        return _gen_batch_rays(camera, seed, start, width=width, height=height, n_samples=blk,
-                               pixels=pixels)
+        return batch_rays(camera, seed, start, width=width, height=height, n_samples=blk,
+                          pixels=pixels)
 
     return blk, range(s0, s1, blk), block_rays
 

@@ -40,13 +40,16 @@ from rtweekend_tpu_torch.device import resolve_device
 from rtweekend_tpu_torch.models.builders import build_scene
 from rtweekend_tpu_torch.models.scene import Scene
 from rtweekend_tpu_torch.ops import integrator
-from rtweekend_tpu_torch.ops.camera import Camera, generate_rays, make_camera
+from rtweekend_tpu_torch.ops.camera import Camera, batch_rays, generate_rays, make_camera
 from rtweekend_tpu_torch.ops.cuda.megakernel import (
     CAPS_CLOSED,
     CAPS_OPEN,
     KERNELS,
     Tables,
+    camera_floats,
     pack_scene,
+    ray_state,
+    state_rays,
     trace_paths,
     trace_paths_compact,
 )
@@ -72,23 +75,6 @@ def resolve_kernel(kernel: str, dtype: torch.dtype) -> str:
                 "integrator (kernel='eager' or 'auto')")
         return "eager"
     return kernel
-
-
-def _gen_batch_rays(camera: Camera, seed: int, sample_start: int, *,
-                    width: int, height: int, n_samples: int, pixels=None):
-    """The rays of every pixel of the id range `pixels` = (start, stop)
-    (default: the whole image) with samples sample_start ..
-    sample_start + n_samples - 1, pixel-major."""
-    dev = camera.origin.device
-    p0, p1 = (0, width * height) if pixels is None else pixels
-    pixel_ids = torch.arange(p0, p1, dtype=torch.int32, device=dev).repeat_interleave(
-        n_samples
-    )
-    sample_ids = sample_start + torch.arange(
-        n_samples, dtype=torch.int32, device=dev
-    ).repeat(p1 - p0)
-    o, d, t = generate_rays(camera, width, height, pixel_ids, sample_ids, seed)
-    return o, d, t, pixel_ids, sample_ids
 
 
 def _pixel_sums(radiance, n_samples: int):
@@ -195,11 +181,10 @@ def render_batch_compact(tables: Tables, camera, background, seed, sample_start,
                          capacities, kernel="auto"):
     """One sample batch through the compacted driver. Returns (accum,
     overflow flag); the flag stays on the device."""
-    o, d, t, pixel_ids, sample_ids = _gen_batch_rays(
-        camera, seed, sample_start, width=width, height=height, n_samples=n_samples
-    )
+    state = ray_state(camera, seed, sample_start, width=width, height=height,
+                      n_samples=n_samples, kernel=kernel)
     radiance, overflow = trace_paths_compact(
-        tables, o, d, t, pixel_ids, sample_ids, seed, background, max_depth,
+        tables, state, width * height * n_samples, seed, background, max_depth,
         capacities=capacities, kernel=kernel,
     )
     accum = _accum_batch(accum, radiance, width=width, height=height,
@@ -210,7 +195,7 @@ def render_batch_compact(tables: Tables, camera, background, seed, sample_start,
 def render_batch(tables: Tables, camera, background, seed, sample_start, accum, *,
                  width, height, n_samples, max_depth, kernel="auto"):
     """One sample batch, all bounces in one launch, no compaction."""
-    o, d, t, pixel_ids, sample_ids = _gen_batch_rays(
+    o, d, t, pixel_ids, sample_ids = batch_rays(
         camera, seed, sample_start, width=width, height=height, n_samples=n_samples
     )
     radiance = trace_paths(tables, o, d, t, pixel_ids, sample_ids, seed,
@@ -222,7 +207,7 @@ def render_batch(tables: Tables, camera, background, seed, sample_start, accum, 
 def render_batch_eager(scene: Scene, camera, background, seed, sample_start, accum, *,
                        width, height, n_samples, max_depth):
     """One sample batch through the eager integrator, in the scene's dtype."""
-    o, d, t, pixel_ids, sample_ids = _gen_batch_rays(
+    o, d, t, pixel_ids, sample_ids = batch_rays(
         camera, seed, sample_start, width=width, height=height, n_samples=n_samples
     )
     radiance = integrator.trace_paths(scene, o, d, t, pixel_ids, sample_ids, seed,
@@ -249,34 +234,40 @@ class _Tracer:
     kernel batches whose compaction overflowed since the last call: their
     compacted contribution (deterministic, counter-keyed) is subtracted and
     the batch traced again without compaction, which never drops rays. The
-    flags are read once, in recover."""
+    flags are read once, in recover; the kernel path's batches make their
+    state with ray_state, from the camera's values read once here, so a
+    batch never waits on the device."""
 
     def __init__(self, scene, camera, width, height, max_depth, background, seed,
                  kernel, capacities, pixels=None):
         self.ray_kw = dict(width=width, height=height, pixels=pixels)
+        p0, p1 = (0, width * height) if pixels is None else pixels
+        self.n_pix = p1 - p0
         self.scene, self.camera, self.background, self.seed = scene, camera, background, seed
         self.max_depth = max_depth
         self.kernel = kernel
         self.eager = kernel == "eager"
         self.tables = None if self.eager else pack_scene(scene)
+        self.host_camera = None if self.eager else camera_floats(camera)
         self.capacities = capacities
         self.overflows = []  # [(sample_start, n_samples, device flag)]
 
-    def _rays(self, start, n):
-        return _gen_batch_rays(self.camera, self.seed, start, n_samples=n, **self.ray_kw)
+    def _state(self, start, n):
+        return ray_state(self.camera, self.seed, start, n_samples=n,
+                         host_camera=self.host_camera, kernel=self.kernel, **self.ray_kw)
 
-    def _compact(self, rays):
-        return trace_paths_compact(self.tables, *rays, self.seed, self.background,
-                                   self.max_depth, capacities=self.capacities,
-                                   kernel=self.kernel)
+    def _compact(self, state, n):
+        return trace_paths_compact(self.tables, state, self.n_pix * n, self.seed,
+                                   self.background, self.max_depth,
+                                   capacities=self.capacities, kernel=self.kernel)
 
     def batch(self, start, n, sums):
-        rays = self._rays(start, n)
         if self.eager:
+            rays = batch_rays(self.camera, self.seed, start, n_samples=n, **self.ray_kw)
             rad = integrator.trace_paths(self.scene, *rays, self.seed, self.background,
                                          self.max_depth)
         else:
-            rad, ovf = self._compact(rays)
+            rad, ovf = self._compact(self._state(start, n), n)
             self.overflows.append((start, n, ovf))
         sums += _pixel_sums(rad, n)
         return sums
@@ -288,10 +279,10 @@ class _Tracer:
         for (start, n, _), bad in zip(self.overflows, flags.tolist()):
             if not bad:
                 continue
-            rays = self._rays(start, n)
-            wrong, _ = self._compact(rays)
-            good = trace_paths(self.tables, *rays, self.seed, self.background, self.max_depth,
-                               kernel=self.kernel)
+            state = self._state(start, n)
+            wrong, _ = self._compact(state, n)
+            good = trace_paths(self.tables, *state_rays(state, self.n_pix * n), self.seed,
+                               self.background, self.max_depth, kernel=self.kernel)
             sums = sums - _pixel_sums(wrong, n) + _pixel_sums(good, n)
         self.overflows = []
         return sums

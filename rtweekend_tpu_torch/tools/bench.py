@@ -48,10 +48,10 @@ import torch
 from rtweekend_tpu_torch.device import describe, resolve_device, synchronize
 from rtweekend_tpu_torch.grad import make_loss
 from rtweekend_tpu_torch.models.builders import build_scene
+from rtweekend_tpu_torch.ops.camera import batch_rays
 from rtweekend_tpu_torch.ops.cuda import megakernel as mk
 from rtweekend_tpu_torch.parallel.shard import extract_params
-from rtweekend_tpu_torch.render import (_gen_batch_rays, adaptive_capacities, batch_size,
-                                        camera_for_scene, render)
+from rtweekend_tpu_torch.render import adaptive_capacities, batch_size, camera_for_scene, render
 from rtweekend_tpu_torch.utils.roofline import FP32_FLOPS, march_flop
 
 SCENE = "final_scene"
@@ -83,8 +83,8 @@ def _live_ray_bounces(scene, camera, seed: int) -> int:
     batch = batch_size(WIDTH * HEIGHT, SPP_MEASURE, RAYS_PER_CHUNK)
     total = 0
     for start in range(0, SPP_MEASURE, batch):
-        state = mk.init_state(*_gen_batch_rays(camera, seed, start, width=WIDTH,
-                                               height=HEIGHT, n_samples=batch))
+        state = mk.init_state(*batch_rays(camera, seed, start, width=WIDTH, height=HEIGHT,
+                                          n_samples=batch))
         for b in range(MAX_DEPTH):
             live = int((state[:, mk.S_AL] > 0.5).sum().item())
             if live == 0:

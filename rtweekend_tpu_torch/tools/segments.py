@@ -71,6 +71,7 @@ def main(argv=None) -> int:
     from rtweekend_tpu_torch import render as render_mod
     from rtweekend_tpu_torch.config import SCENE_DEFAULTS
     from rtweekend_tpu_torch.models.builders import build_scene
+    from rtweekend_tpu_torch.ops.camera import generate_rays
     from rtweekend_tpu_torch.ops.cuda import megakernel as mk
 
     device_ms = _device_ms()
@@ -107,8 +108,10 @@ def main(argv=None) -> int:
         bg = p["background"]
         tables = mk.pack_scene(build_scene(scene_name, device=dev))
         cam = render_mod.camera_for_scene(scene_name, w / h, dev)
-        o, d, t, pid, sid = render_mod._gen_batch_rays(cam, SEED, 0, width=w, height=h,
-                                                       n_samples=1)
+        # sample 0 of every pixel, from the camera ops every checkout has
+        pid = torch.arange(w * h, dtype=torch.int32, device=dev)
+        sid = torch.zeros_like(pid)
+        o, d, t = generate_rays(cam, w, h, pid, sid, SEED)
         state = mk.init_state(o, d, t, pid, sid)
         rows = []
         if name == "pass2":

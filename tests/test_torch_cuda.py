@@ -24,7 +24,7 @@ from rtweekend_tpu_torch.config import SCENE_DEFAULTS, RenderConfig
 from rtweekend_tpu_torch.ops import integrator
 from rtweekend_tpu_torch.models import scene as port_scene
 from rtweekend_tpu_torch.models.builders import _procedural_earth_rgba, build_scene
-from rtweekend_tpu_torch.ops.camera import generate_rays
+from rtweekend_tpu_torch.ops.camera import batch_rays, generate_rays
 from rtweekend_tpu_torch.ops.cuda import megakernel as mk
 from rtweekend_tpu_torch.parallel.shard import extract_params, sharded_train_step
 from rtweekend_tpu_torch.render import camera_for_scene, render_image
@@ -135,7 +135,7 @@ def test_general_instantiation_vs_plain_on_card(dev):
     got = mk.trace_paths(tables, *rays, SEED, SKY, 8, kernel="cuda")
     counts = {k: v - before[k] for k, v in mk.launch_counts().items()}
     assert counts == dict(launches=1, winners_launches=0, noise_launches=1,
-                          image_launches=1, sky_launches=1)
+                          image_launches=1, sky_launches=1, raygen_launches=0)
     want = mk.trace_paths(tables, *rays, SEED, SKY, 8, kernel="torch")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -150,8 +150,8 @@ def test_compacted_bit_equal_on_card(dev):
     bg = SCENE_DEFAULTS["final_scene"]["background"]
     full = mk.trace_paths(tables, *rays, SEED, bg, 9, kernel="cuda")
     comp, overflow = mk.trace_paths_compact(
-        tables, *rays, SEED, bg, 9, capacities=((1, 0.9), (3, 0.5), (6, 0.3)),
-        kernel="cuda")
+        tables, mk.init_state(*rays), 2500, SEED, bg, 9,
+        capacities=((1, 0.9), (3, 0.5), (6, 0.3)), kernel="cuda")
     assert not overflow.item()
     assert torch.equal(comp, full)
 
@@ -160,7 +160,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     tables = mk.pack_scene(build_scene("cornell_box", device=dev))
     state = mk.init_state(*_rays("cornell_box", 1.0, 1024, dev))
     bg = (0.0, 0.0, 0.0)
-    before = mk.trace_segment.launches
+    before = mk.launch_counts()["launches"]
     with pytest.raises(ValueError, match="contiguous"):
         mk.trace_segment(tables, state.t().contiguous().t(), SEED, bg, 0, 1)
     with pytest.raises(TypeError, match="float32"):
@@ -171,16 +171,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="needs tensors on a CUDA device"):
         mk.trace_paths(cpu_tables, *_rays("cornell_box", 1.0, 64, "cpu"), SEED, bg, 2,
                        kernel="cuda")
-    assert mk.trace_segment.launches == before
+    assert mk.launch_counts()["launches"] == before
 
 
 def test_render_image_defaults_to_the_card(dev):
-    before = mk.trace_segment.launches
+    before = mk.launch_counts()["launches"]
     img, accum = render_image(RenderConfig(scene="final_scene", width=64, height=36,
                                            samples_per_pixel=2, max_depth=12))
     assert accum.device.type == "cuda"
     assert img.shape == (36, 64, 3) and torch.isfinite(accum).all()
-    assert mk.trace_segment.launches > before
+    assert mk.launch_counts()["launches"] > before
 
 
 def _alive(fn, tables, state, bg, depth):
@@ -203,9 +203,9 @@ def test_kernel_winners_vs_plain_on_card(dev, name):
     rays = _rays(name, 16 / 9 if name == "final_scene" else 1.0, 8192, dev)
     bg = SCENE_DEFAULTS[name]["background"]
     state = mk.init_state(*rays)
-    before = mk.trace_segment.winners_launches
+    before = mk.launch_counts()["winners_launches"]
     rad_w, st_w, win = mk.trace_segment(tables, state, SEED, bg, 0, 8, want_winners=True)
-    assert mk.trace_segment.winners_launches == before + 1
+    assert mk.launch_counts()["winners_launches"] == before + 1
     rad, st = mk.trace_segment(tables, state, SEED, bg, 0, 8)
     _, _, want = mk.trace_segment_plain(tables, state, SEED, bg, 0, 8, want_winners=True)
     torch.cuda.synchronize()
@@ -227,12 +227,13 @@ def test_train_step_on_card(dev):
     scene = build_scene("final_scene", device=dev)
     cam = camera_for_scene("final_scene", 16 / 9, dev)
     target = torch.full((18, 32, 3), 0.5, device=dev)
-    launches, winners = mk.trace_segment.launches, mk.trace_segment.winners_launches
+    before = mk.launch_counts()
     p1, loss = sharded_train_step(scene, cam, target, 32, 18, 2, 6,
                                   SCENE_DEFAULTS["final_scene"]["background"], 7, lr=1.0,
                                   rays_per_chunk=32 * 18)
-    assert mk.trace_segment.launches - launches == 4
-    assert mk.trace_segment.winners_launches - winners == 2
+    after = mk.launch_counts()
+    assert after["launches"] - before["launches"] == 4
+    assert after["winners_launches"] - before["winners_launches"] == 2
     assert torch.isfinite(loss) and loss.item() > 0.0
     p0 = extract_params(scene)
     for k, v in p1.items():
@@ -386,10 +387,10 @@ def test_eager_vs_plain_on_card(dev, name):
     scene = build_scene(name, device=dev)
     rays = _rays(name, aspect, 8192, dev)
     bg = SCENE_DEFAULTS[name]["background"]
-    before = mk.trace_segment.launches
+    before = mk.launch_counts()["launches"]
     got = integrator.trace_paths(scene, *rays, SEED, bg, 8)
     _, e_win = integrator.path_decisions(scene, *rays, SEED, 8)
-    assert mk.trace_segment.launches == before and got.device.type == "cuda"
+    assert mk.launch_counts()["launches"] == before and got.device.type == "cuda"
     tables = mk.pack_scene(scene)
     want, p_win = mk.trace_paths(tables, *rays, SEED, bg, 8, kernel="torch",
                                  return_winners=True)
@@ -408,10 +409,10 @@ def test_float64_on_card(dev):
     kernel refuses a float64 scene."""
     cfg = RenderConfig(scene="cornell_box", width=16, height=16, samples_per_pixel=4,
                        max_depth=5, dtype="float64")
-    before = mk.trace_segment.launches
+    before = mk.launch_counts()["launches"]
     _, got = render_image(cfg)
     assert got.device.type == "cuda" and got.dtype == torch.float64
-    assert mk.trace_segment.launches == before
+    assert mk.launch_counts()["launches"] == before
     _, want = render_image(cfg, device="cpu")
     off = ((got.cpu() - want).abs() > 1e-6).double().mean().item()
     assert off <= 0.005, off
@@ -429,10 +430,10 @@ def test_resume_matches_uninterrupted_on_card(dev, tmp_path):
     p = str(tmp_path / "r.ckpt")
     checkpoint.save(p, checkpoint.RenderState(
         partial.cpu().numpy(), 4, checkpoint._meta("two_spheres", 16, 16, 8, 3, SEED)))
-    before = mk.trace_segment.launches
+    before = mk.launch_counts()["launches"]
     resumed = checkpoint.render_resumable(scene, cam, "two_spheres", 16, 16, 8, 3, bg, SEED,
                                           p, **kw)
-    assert mk.trace_segment.launches > before and resumed.device.type == "cuda"
+    assert mk.launch_counts()["launches"] > before and resumed.device.type == "cuda"
     torch.testing.assert_close(resumed, full, rtol=1e-6, atol=1e-6)
 
 
@@ -447,3 +448,106 @@ def test_adaptive_schedule_bit_equal_on_card(dev, name):
     _, adaptive = render_image(cfg)
     _, static = render_image(cfg, capacities=render_mod._capacities_for(p["background"]))
     assert torch.equal(adaptive, static)
+
+
+# Ray generation on the card (raygen_kernel through megakernel.ray_state):
+# (scene, width, height, samples a pixel, first sample, pixel range, seed).
+# A full final_scene 1-spp batch and a full golden_scene 4-spp batch (the
+# benchmark's batch shapes), then ranges that start past pixel 0, samples
+# past 0 and ray counts that are not a TILE multiple.
+RAYGEN_CASES = [
+    ("final_scene", 1200, 675, 1, 0, None, SEED),
+    ("final_scene", 64, 36, 4, 8, (100, 1901), 3_000_000_000),
+    ("golden_scene", 600, 400, 4, 0, None, SEED),
+    ("golden_scene", 60, 40, 1, 37, (13, 2000), 2**32 - 1),
+]
+
+
+@pytest.mark.parametrize("case", RAYGEN_CASES, ids=lambda c: f"{c[0]}-{c[3]}spp-{c[4]}")
+def test_raygen_kernel_bit_equal_on_card(dev, case):
+    """The kernel's state is bit for bit what generate_rays + init_state
+    compute with PyTorch's CUDA ops (signed zeros included)."""
+    name, w, h, spp, start, pixels, seed = case
+    cam = camera_for_scene(name, w / h, dev)
+    kw = dict(width=w, height=h, n_samples=spp, pixels=pixels)
+    before = mk.launch_counts()["raygen_launches"]
+    got = mk.ray_state(cam, seed, start, **kw)
+    assert mk.launch_counts()["raygen_launches"] == before + 1
+    want = mk.init_state(*batch_rays(cam, seed, start, **kw))
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _twin_state(camera, seed, sample_start, host_camera=None, kernel=None, **kw):
+    return mk.init_state(*batch_rays(camera, seed, sample_start, **kw))
+
+
+@pytest.mark.parametrize("name,w,h,spp", [("final_scene", 96, 54, 16),
+                                          ("golden_scene", 60, 40, 4)])
+def test_render_image_same_bits_as_the_twin_on_card(dev, monkeypatch, name, w, h, spp):
+    """render_image's accum is bit-equal with the kernel's states and with
+    the PyTorch ops' (the twin forced), and the kernel runs once a batch."""
+    cfg = RenderConfig(scene=name, width=w, height=h, samples_per_pixel=spp,
+                       rays_per_chunk=w * h * 2)   # 2 samples a batch
+    mk.reset_launch_counts()
+    _, got = render_image(cfg)
+    assert mk.launch_counts()["raygen_launches"] == spp // 2
+    monkeypatch.setattr(render_mod, "ray_state", _twin_state)
+    _, want = render_image(cfg)
+    assert torch.equal(got, want)
+
+
+def test_ray_state_is_float32_only_on_card(dev):
+    """raygen_kernel is float32 only: a float64 camera on the card raises
+    rather than falling back to the PyTorch ops."""
+    cam = camera_for_scene("final_scene", 16 / 9, dev, torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        mk.ray_state(cam, SEED, 0, width=16, height=9, n_samples=1)
+
+
+def test_plain_render_launches_no_raygen_on_card(dev):
+    """kernel="torch" is the plain version throughout: its batches make
+    their rays with the PyTorch ops, and bit-equal to the kernel's."""
+    cfg = RenderConfig(scene="final_scene", width=32, height=18, samples_per_pixel=2,
+                       max_depth=6)
+    mk.reset_launch_counts()
+    render_image(cfg, kernel="torch")
+    assert mk.launch_counts()["raygen_launches"] == 0
+    cam = camera_for_scene("final_scene", 32 / 18, dev)
+    kw = dict(width=32, height=18, n_samples=2)
+    plain = mk.ray_state(cam, SEED, 0, kernel="torch", **kw)
+    assert mk.launch_counts()["raygen_launches"] == 0
+    assert torch.equal(plain.view(torch.int32), mk.ray_state(cam, SEED, 0, **kw).view(torch.int32))
+
+
+def test_tracer_batch_never_syncs_on_card(dev):
+    """A compacted render batch on the card never waits on the device: no
+    synchronising call under torch.cuda.set_sync_debug_mode("error")."""
+    scene = build_scene("final_scene", device=dev)
+    cam = camera_for_scene("final_scene", 1200 / 675, dev)
+    bg = SCENE_DEFAULTS["final_scene"]["background"]
+    tracer = render_mod._Tracer(scene, cam, 1200, 675, 50, bg, SEED, "cuda", mk.CAPS_OPEN)
+    sums = torch.zeros((1200 * 675, 3), device=dev)
+    sums = tracer.batch(0, 1, sums)   # the first: builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums = tracer.batch(1, 1, sums)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(tracer.recover(sums)).all()
+
+
+def test_overflow_recovery_from_the_same_state_on_card(dev):
+    """An overflowed batch is traced again from a state the kernel makes
+    anew, bit-equal to the first: one more launch, and the recovered frame
+    is the uncompacted one."""
+    scene = build_scene("cornell_box", device=dev)
+    cam = camera_for_scene("cornell_box", 1.0, dev)
+    bg = (0.0, 0.0, 0.0)
+    mk.reset_launch_counts()
+    # 4,096 rays in one batch; entering bounce 2 the buffer holds 1,024
+    fb = render_mod.render(scene, cam, 32, 32, 4, 6, bg, SEED, capacities=((2, 0.1),))
+    assert mk.launch_counts()["raygen_launches"] == 2   # the batch, its re-trace
+    want = render_mod.render(scene, cam, 32, 32, 4, 6, bg, SEED, capacities=())
+    torch.testing.assert_close(fb, want, rtol=1e-5, atol=1e-6)

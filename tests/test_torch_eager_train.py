@@ -56,11 +56,11 @@ from rtweekend_tpu_torch.grad import render_mean
 from rtweekend_tpu_torch.models.builders import build_scene
 from rtweekend_tpu_torch.models.scene import Diffuse, SceneBuilder, Solid
 from rtweekend_tpu_torch.ops import integrator
-from rtweekend_tpu_torch.ops.camera import make_camera
+from rtweekend_tpu_torch.ops.camera import batch_rays, make_camera
 from rtweekend_tpu_torch.ops.cuda import megakernel as mk
 from rtweekend_tpu_torch.ops.replay import trace_paths_replay_fast
 from rtweekend_tpu_torch.parallel.shard import extract_params, merge_params, sharded_train_step
-from rtweekend_tpu_torch.render import _gen_batch_rays, camera_for_scene
+from rtweekend_tpu_torch.render import camera_for_scene
 
 from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
 
@@ -184,12 +184,12 @@ def test_eager_train_step_matches_jax():
     scene = build_scene(NAME, device="cpu")
     cam = camera_for_scene(NAME, W / H, "cpu")
     p0 = params_to_numpy(extract_params(scene))
-    launches = mk.trace_segment.launches
+    launches = mk.launch_counts()["launches"]
     tm = {}
     p1, loss = sharded_train_step(scene, cam, torch.from_numpy(TARGET), W, H, SPP, DEPTH,
                                   SKY, SEED, lr=1.0, use_pallas=False, timings=tm)
     p1 = params_to_numpy(p1)
-    assert mk.trace_segment.launches == launches and set(tm) == {"pass1_s", "pass2_s"}
+    assert mk.launch_counts()["launches"] == launches and set(tm) == {"pass1_s", "pass2_s"}
 
     rays = _step_rays()
     j_win = np.asarray(_jax_winners(jscene, *[jnp.asarray(x) for x in rays],
@@ -253,12 +253,11 @@ def test_eager_grads_match_the_kernel_winners_replay():
     w, h, spp = 24, 16, 2
     scene = build_scene(NAME, device="cpu", dtype=torch.float64)
     cam = camera_for_scene(NAME, w / h, "cpu", torch.float64)
-    rays = _gen_batch_rays(cam, SEED, 0, width=w, height=h, n_samples=spp)
+    rays = batch_rays(cam, SEED, 0, width=w, height=h, n_samples=spp)
     _, e_win = integrator.path_decisions(scene, *rays, SEED, DEPTH)
     cam32 = camera_for_scene(NAME, w / h, "cpu")
     _, k_win = mk.trace_paths(mk.pack_scene(build_scene(NAME, device="cpu")),
-                              *_gen_batch_rays(cam32, SEED, 0, width=w, height=h,
-                                               n_samples=spp),
+                              *batch_rays(cam32, SEED, 0, width=w, height=h, n_samples=spp),
                               SEED, SKY, DEPTH, kernel="torch", return_winners=True)
     same = (e_win == k_win).all(0)
     assert same.double().mean() >= 0.99

@@ -24,8 +24,9 @@ from rtweekend_tpu_torch.config import RenderConfig
 from rtweekend_tpu_torch.convert import scene_from_numpy
 from rtweekend_tpu_torch.models.builders import build_scene
 from rtweekend_tpu_torch.ops import integrator
+from rtweekend_tpu_torch.ops.camera import batch_rays
 from rtweekend_tpu_torch.ops.cuda import megakernel as mk
-from rtweekend_tpu_torch.render import _gen_batch_rays, camera_for_scene, render, render_image
+from rtweekend_tpu_torch.render import camera_for_scene, render, render_image
 
 from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_scene import assert_leaves_equal, jax_leaves, scene_to_numpy
@@ -57,7 +58,7 @@ def test_f64_dtype_end_to_end():
     assert floats and all(v.dtype == np.float64 for v in floats)
     cam = camera_for_scene("cornell_box", 1.0, "cpu", dt)
     assert all(getattr(cam, k).dtype == dt for k in ("origin", "horizontal", "lens_radius"))
-    o, d, t, pid, sid = _gen_batch_rays(cam, SEED, 0, width=W, height=H, n_samples=SPP)
+    o, d, t, pid, sid = batch_rays(cam, SEED, 0, width=W, height=H, n_samples=SPP)
     assert o.dtype == d.dtype == t.dtype == dt
     rad = integrator.trace_paths(scene, o, d, t, pid, sid, SEED, (0.0, 0.0, 0.0), DEPTH)
     assert rad.dtype == dt

@@ -99,13 +99,15 @@ def test_compacted_bit_equal_to_uncompacted():
     rays = _rays("final_scene", 16 / 9, 2500)  # not a TILE multiple
     bg = SCENE_DEFAULTS["final_scene"]["background"]
     full = mk.trace_paths(tables, *rays, SEED, bg, 9)
+    state = mk.init_state(*rays)
     comp, overflow = mk.trace_paths_compact(
-        tables, *rays, SEED, bg, 9, capacities=((1, 0.9), (3, 0.5), (6, 0.3)))
+        tables, state, 2500, SEED, bg, 9, capacities=((1, 0.9), (3, 0.5), (6, 0.3)))
     assert not overflow.item()
     assert torch.equal(comp, full)
     # an unsorted, duplicated schedule behaves as its sorted dedupe
     again, _ = mk.trace_paths_compact(
-        tables, *rays, SEED, bg, 9, capacities=((6, 0.3), (3, 0.5), (1, 0.9), (3, 0.5)))
+        tables, state, 2500, SEED, bg, 9,
+        capacities=((6, 0.3), (3, 0.5), (1, 0.9), (3, 0.5)))
     assert torch.equal(again, full)
 
 
@@ -113,11 +115,12 @@ def test_compaction_overflow_raises_flag():
     tables = mk.pack_scene(build_scene("cornell_box", device="cpu"))
     rays = _rays("cornell_box", 1.0, 4096)  # enclosed: rays stay alive
     bg = (0.0, 0.0, 0.0)
-    r, overflow = mk.trace_paths_compact(tables, *rays, SEED, bg, 6,
+    state = mk.init_state(*rays)
+    r, overflow = mk.trace_paths_compact(tables, state, 4096, SEED, bg, 6,
                                          capacities=((2, 0.1),))
     assert overflow.item()
     assert torch.isfinite(r).all()
-    r2, overflow2 = mk.trace_paths_compact(tables, *rays, SEED, bg, 6,
+    r2, overflow2 = mk.trace_paths_compact(tables, state, 4096, SEED, bg, 6,
                                            capacities=((2, 0.9),))
     assert not overflow2.item()
     assert torch.equal(r2, mk.trace_paths(tables, *rays, SEED, bg, 6))

@@ -138,12 +138,12 @@ def test_golden_train_step_matches_jax():
     pscene = build_scene(NAME, device="cpu")
     pcam = camera_for_scene(NAME, W / H, "cpu")
     p0 = params_to_numpy(extract_params(pscene))
-    sky_before = mk.trace_segment.sky_launches
+    sky_before = mk.launch_counts()["sky_launches"]
     p1, loss = sharded_train_step(pscene, pcam, torch.from_numpy(TARGET), W, H, SPP, DEPTH,
                                   BG, SEED, lr=1.0)
     p1 = params_to_numpy(p1)
     # on the CPU the wrapper runs the plain version: no kernel launch
-    assert mk.trace_segment.sky_launches == sky_before
+    assert mk.launch_counts()["sky_launches"] == sky_before
 
     j_rad, j_win, p_rad, p_win, rays = _paths(scene, cam)
     diverged = (j_win != p_win).any(0)
