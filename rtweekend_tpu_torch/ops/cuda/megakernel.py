@@ -816,9 +816,11 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
 # launches of the hand-written kernels, by counter: "launches" counts the
 # bounce kernel's of every variant, "winners_launches", "noise_launches",
 # "image_launches" and "sky_launches" those with that variant compiled in,
-# "raygen_launches" raygen_kernel's
+# "raygen_launches" raygen_kernel's; "retrace_launches" counts
+# render._Tracer.recover's uncompacted re-traces of overflowed batches, on
+# every device
 LAUNCH_COUNTS = ("launches", "winners_launches", "noise_launches", "image_launches",
-                 "sky_launches", "raygen_launches")
+                 "sky_launches", "raygen_launches", "retrace_launches")
 LAUNCHES = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 

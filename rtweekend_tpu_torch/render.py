@@ -45,6 +45,7 @@ from rtweekend_tpu_torch.ops.cuda.megakernel import (
     CAPS_CLOSED,
     CAPS_OPEN,
     KERNELS,
+    LAUNCHES,
     Tables,
     camera_floats,
     pack_scene,
@@ -233,10 +234,12 @@ class _Tracer:
     sums [n_pix, 3] (pixel-id order), and `recover(sums)` re-traces the
     kernel batches whose compaction overflowed since the last call: their
     compacted contribution (deterministic, counter-keyed) is subtracted and
-    the batch traced again without compaction, which never drops rays. The
-    flags are read once, in recover; the kernel path's batches make their
-    state with ray_state, from the camera's values read once here, so a
-    batch never waits on the device."""
+    the batch traced again without compaction, which never drops rays,
+    inside an "overflow_retrace" profiler span and counted by
+    megakernel.LAUNCHES["retrace_launches"]. The flags are read once, in
+    recover; the kernel path's batches make their state with ray_state,
+    from the camera's values read once here, so a batch never waits on the
+    device."""
 
     def __init__(self, scene, camera, width, height, max_depth, background, seed,
                  kernel, capacities, pixels=None):
@@ -279,11 +282,13 @@ class _Tracer:
         for (start, n, _), bad in zip(self.overflows, flags.tolist()):
             if not bad:
                 continue
-            state = self._state(start, n)
-            wrong, _ = self._compact(state, n)
-            good = trace_paths(self.tables, *state_rays(state, self.n_pix * n), self.seed,
-                               self.background, self.max_depth, kernel=self.kernel)
-            sums = sums - _pixel_sums(wrong, n) + _pixel_sums(good, n)
+            with torch.profiler.record_function("overflow_retrace"):
+                state = self._state(start, n)
+                wrong, _ = self._compact(state, n)
+                good = trace_paths(self.tables, *state_rays(state, self.n_pix * n), self.seed,
+                                   self.background, self.max_depth, kernel=self.kernel)
+                sums = sums - _pixel_sums(wrong, n) + _pixel_sums(good, n)
+            LAUNCHES["retrace_launches"] += 1
         self.overflows = []
         return sums
 
