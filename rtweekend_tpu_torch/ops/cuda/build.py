@@ -68,7 +68,9 @@ def bind(lib):
         p, p, i,        # attr_f, attr_i, attr_stride
         i, i, i, i, i,  # s_pad, r_pad, s_live, r_live, variant mask
         p, p, p,        # perm, grad, images
-        p, p, p, p, i,  # state_in, state_out, rad, winners (or None), m
+        p, p, p,        # state_in, state_out, rad (or None)
+        p, i,           # accum (or None), accum_cols
+        p, i,           # winners (or None), m
         u, f, f, f,     # seed, background rgb (the gradient sky's bottom)
         f, f, f,        # the gradient sky's top
         i, i, f,        # b0, n_bounces, t_min

@@ -16,7 +16,9 @@ on the card in one launch of `raygen_kernel` (csrc/megakernel.cu), which
 the host never waits on; elsewhere from the camera's PyTorch ops.
 
 The compacted driver (`trace_paths_compact`) traces a few bounces per
-launch and gathers the survivors into a smaller buffer between launches.
+launch and gathers the survivors into a smaller buffer between launches;
+each launch adds its finished rays' radiance into the batch total at their
+ray ids as it writes them out (`accum`), so no scatter follows it.
 Buffer sizes come from a static per-bounce capacity schedule, so nothing
 is read back to the host: the alive count and the overflow flag stay on
 the device, and a capacity overflow raises the flag instead of dropping
@@ -421,7 +423,7 @@ def _image_rgb(tables: Tables, j, is_s, onx, ony, onz, px, py, pz):
 
 def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
                         n_bounces: int, t_min: float = T_MIN, *,
-                        want_winners: bool = False):
+                        want_winners: bool = False, accum=None):
     """n_bounces bounces from global bounce b0 for every row of `state`,
     with plain tensor ops: the TPU kernel's bounce_body
     (megakernel.py:588-893), op for op, over flat [m] ray vectors.
@@ -431,7 +433,11 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
     (spheres first, then s_pad + rect), -1 on a miss and wherever the ray
     is dead (the TPU kernel leaves those entries unspecified).
     background: 3 floats (flat sky) or a (bottom, top) pair (gradient
-    sky)."""
+    sky). accum, a float32 [3, cols] buffer: each row alive at entry adds
+    its radiance into accum[:, ray_id] instead (a row dead at entry adds
+    nothing), and the radiance delta returned is None; the rows' ray ids
+    must lie below cols, the live rows' distinct (trace_paths_compact's
+    buffers)."""
     (bg_r, bg_g, bg_b, bg_r1, bg_g1, bg_b1), has_sky = sky_floats(background)
     s, r = tables.s_pad, tables.r_pad
     n_prims = s + r
@@ -634,9 +640,17 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
         ox, oy, oz, dx, dy, dz, time, state[:, S_PID], state[:, S_SID],
         tr, tg, tb, al_out, state[:, S_RID],
     ], dim=1)
+    rad = torch.stack([rr, rg, rb])
+    if accum is not None:
+        # a row dead at entry adds exactly +0.0, which changes no bit of
+        # accum: the kernel's write-out, without a mask that would sync
+        rid = _int_col(state, S_RID).long()
+        for c in range(3):
+            accum[c].index_add_(0, rid, rad[c])
+        rad = None
     if want_winners:
-        return torch.stack([rr, rg, rb]), new_state, torch.stack(winners)
-    return torch.stack([rr, rg, rb]), new_state
+        return rad, new_state, torch.stack(winners)
+    return rad, new_state
 
 
 def _check_cuda_args(tables: Tables, state: torch.Tensor):
@@ -743,12 +757,23 @@ def _counter(dev, stream: int) -> torch.Tensor:
     return _COUNTERS[key]
 
 
+def _check_accum(accum, state: torch.Tensor):
+    if accum.device != state.device:
+        raise ValueError(f"accum is on {accum.device}, state on {state.device}")
+    if accum.dtype != torch.float32 or not accum.is_contiguous():
+        raise TypeError("accum must be a contiguous float32 tensor")
+    if accum.dim() != 2 or accum.shape[0] != 3:
+        raise ValueError(f"accum must be [3, cols], got {tuple(accum.shape)}")
+
+
 def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
             n_bounces: int, t_min: float, want_winners: bool, group: int, blocks: int,
-            counter: torch.Tensor, stream: int):
-    """Allocate the outputs and launch once through the C entry."""
+            counter: torch.Tensor, stream: int, accum=None):
+    """Allocate the outputs and launch once through the C entry; with
+    accum, no radiance delta is allocated (None is returned for it)."""
     m = state.shape[0]
-    rad = torch.empty((3, m), dtype=torch.float32, device=state.device)
+    rad = (torch.empty((3, m), dtype=torch.float32, device=state.device)
+           if accum is None else None)
     out = torch.empty_like(state)
     # the kernel writes every entry, -1 after a ray's death included
     win = (torch.empty((n_bounces, m), dtype=torch.int32, device=state.device)
@@ -758,7 +783,8 @@ def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
         tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
         tables.s_pad, tables.r_pad, tables.s_live, tables.r_live, variant,
         tables.perm.data_ptr(), tables.grad.data_ptr(), tables.images.data_ptr(),
-        state.data_ptr(), out.data_ptr(), rad.data_ptr(),
+        state.data_ptr(), out.data_ptr(), None if rad is None else rad.data_ptr(),
+        None if accum is None else accum.data_ptr(), 0 if accum is None else accum.shape[1],
         win.data_ptr() if want_winners else None, m,
         int(seed) & 0xFFFFFFFF, *bg, int(b0), int(n_bounces), float(t_min),
         group, blocks, counter.data_ptr(), stream,
@@ -771,7 +797,7 @@ def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
 
 def trace_segment(tables: Tables, state, seed: int, background, b0: int,
                   n_bounces: int, t_min: float = T_MIN, *, want_winners: bool = False,
-                  _group: int | None = None):
+                  accum=None, _group: int | None = None):
     """The bounce kernel (csrc/megakernel.cu) for CUDA tensors; the plain
     version for CPU tensors. Same contract as trace_segment_plain.
 
@@ -782,14 +808,22 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     count, the bounces and the rows scanned by launch_shape (1 or 2 for a
     full batch's short first segment, 8 for its depth-50 launch, up to 32
     for small buffers); `_group` forces G (tests). `last_shape` is the
-    (G, blocks) of the last launch. LAUNCHES counts the launches."""
+    (G, blocks) of the last launch. LAUNCHES counts the launches.
+
+    accum: the kernel adds each finished ray's radiance into accum[:,
+    ray_id] as it writes the ray out, and writes no radiance delta (None
+    is returned for it); rows dead at entry add nothing. Nothing is
+    synchronised to check the ids: the live ray ids of the rows must be
+    distinct and below accum's column count."""
     if state.device.type == "cpu":
         return trace_segment_plain(tables, state, seed, background, b0,
-                                   n_bounces, t_min, want_winners=want_winners)
+                                   n_bounces, t_min, want_winners=want_winners, accum=accum)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
     bg, has_sky = sky_floats(background)
     _check_cuda_args(tables, state)
+    if accum is not None:
+        _check_accum(accum, state)
     from rtweekend_tpu_torch.ops.cuda import build
 
     lib, _ = build.load()
@@ -801,9 +835,10 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
         2 * tables.s_live + 6 * tables.r_live, n_bounces, _group)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rad, out, win = _launch(lib, tables, state, seed, bg, variant, b0, n_bounces, t_min,
-                            want_winners, group, blocks, _counter(dev, stream), stream)
+                            want_winners, group, blocks, _counter(dev, stream), stream, accum)
     trace_segment.last_shape = (group, blocks)
     LAUNCHES["launches"] += 1
+    LAUNCHES["accum_launches"] += accum is not None
     LAUNCHES["noise_launches"] += tables.has_noise
     LAUNCHES["image_launches"] += tables.has_image
     LAUNCHES["sky_launches"] += has_sky
@@ -816,11 +851,13 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
 # launches of the hand-written kernels, by counter: "launches" counts the
 # bounce kernel's of every variant, "winners_launches", "noise_launches",
 # "image_launches" and "sky_launches" those with that variant compiled in,
-# "raygen_launches" raygen_kernel's; "retrace_launches" counts
+# "raygen_launches" raygen_kernel's; "accum_launches" the bounce kernel's
+# that added their radiance into a caller's buffer at the ray ids (every
+# launch of trace_paths_compact on the card); "retrace_launches" counts
 # render._Tracer.recover's uncompacted re-traces of overflowed batches, on
 # every device
 LAUNCH_COUNTS = ("launches", "winners_launches", "noise_launches", "image_launches",
-                 "sky_launches", "raygen_launches", "retrace_launches")
+                 "sky_launches", "raygen_launches", "retrace_launches", "accum_launches")
 LAUNCHES = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 
@@ -928,6 +965,7 @@ def trace_paths_compact(tables: Tables, state, n: int, seed: int, background,
     case live rays were dropped."""
     fn = segment_fn(kernel, state.device)
     dev = state.device
+    # each segment adds its rays' radiance here at their ray ids (`accum`)
     total = torch.zeros((3, state.shape[0]), dtype=torch.float32, device=dev)
     # filled on the device: torch.tensor(n, device=dev) copies from the host and syncs
     count = torch.full((), n, dtype=torch.int64, device=dev)
@@ -936,14 +974,6 @@ def trace_paths_compact(tables: Tables, state, n: int, seed: int, background,
         if out_cap < state.shape[0]:
             state, ovf = compact(state, count, out_cap)
             overflow = overflow | ovf
-        rad, state = fn(tables, state, seed, background, b0, n_b)
-        if out_cap == total.shape[1]:
-            # before the first compaction ray_id == row: a dense add
-            total += rad
-        else:
-            # per-channel scatter-add; repeated spill rows add exactly 0
-            ray_id = _int_col(state, S_RID).long()
-            for c in range(3):
-                total[c].index_add_(0, ray_id, rad[c])
+        _, state = fn(tables, state, seed, background, b0, n_b, accum=total)
         count = (state[:, S_AL] > 0.5).sum()
     return total[:, :n].t(), overflow

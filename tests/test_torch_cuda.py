@@ -136,7 +136,7 @@ def test_general_instantiation_vs_plain_on_card(dev):
     counts = {k: v - before[k] for k, v in mk.launch_counts().items()}
     assert counts == dict(launches=1, winners_launches=0, noise_launches=1,
                           image_launches=1, sky_launches=1, raygen_launches=0,
-                          retrace_launches=0)
+                          retrace_launches=0, accum_launches=0)
     want = mk.trace_paths(tables, *rays, SEED, SKY, 8, kernel="torch")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -155,6 +155,110 @@ def test_compacted_bit_equal_on_card(dev):
         capacities=((1, 0.9), (3, 0.5), (6, 0.3)), kernel="cuda")
     assert not overflow.item()
     assert torch.equal(comp, full)
+
+
+ACCUM_CASES = {   # scene: (aspect, capacities leaving most rows padding, overflowing)
+    "final_scene": (16 / 9, ((1, 0.95), (3, 0.9), (6, 0.8)), ((1, 0.05),)),
+    "cornell_box": (1.0, ((2, 0.95), (4, 0.9), (6, 0.85)), ((2, 0.1),)),
+}
+
+
+def _scatter_compact(tables, state, n, bg, depth, capacities):
+    """trace_paths_compact's total from the kernel's radiance deltas
+    (accum=None), scattered by a dense add before the first compaction and
+    a per-channel index_add_ over every row, padding included, after it."""
+    total = torch.zeros((3, state.shape[0]), device=state.device)
+    count = torch.full((), n, dtype=torch.int64, device=state.device)
+    overflow = torch.zeros((), dtype=torch.bool, device=state.device)
+    for b0, n_b, out_cap in mk.schedule(n, depth, capacities):
+        if out_cap < state.shape[0]:
+            state, ovf = mk.compact(state, count, out_cap)
+            overflow = overflow | ovf
+        rad, state = mk.trace_segment(tables, state, SEED, bg, b0, n_b)
+        if out_cap == total.shape[1]:
+            total += rad
+        else:
+            rid = state[:, mk.S_RID].view(torch.int32).long()
+            for c in range(3):
+                total[c].index_add_(0, rid, rad[c])
+        count = (state[:, mk.S_AL] > 0.5).sum()
+    return total[:, :n].t(), overflow
+
+
+@pytest.mark.parametrize("overflowing", [False, True], ids=["padding", "overflow"])
+@pytest.mark.parametrize("name", sorted(ACCUM_CASES))
+def test_accum_write_out_bit_equal_on_card(dev, name, overflowing):
+    """trace_paths_compact adds each ray's radiance at its ray id in the
+    kernel's write-out: bit-equal to the same segments' radiance deltas
+    scattered by index_add_, under capacities that leave most rows padding
+    (then also to the uncompacted trace) and under one that overflows.
+    Every launch of the batch adds into the total; trace_paths' launch
+    does not."""
+    aspect, roomy, tight = ACCUM_CASES[name]
+    caps = tight if overflowing else roomy
+    tables = mk.pack_scene(build_scene(name, device=dev))
+    rays = _rays(name, aspect, 4096, dev)
+    bg = SCENE_DEFAULTS[name]["background"]
+    state = mk.init_state(*rays)
+    mk.reset_launch_counts()
+    got, overflow = mk.trace_paths_compact(tables, state, 4096, SEED, bg, 8,
+                                           capacities=caps, kernel="cuda")
+    counts = mk.launch_counts()
+    assert counts["accum_launches"] == counts["launches"] == len(mk.schedule(4096, 8, caps))
+    want, want_ovf = _scatter_compact(tables, state, 4096, bg, 8, caps)
+    assert overflow.item() == want_ovf.item() == overflowing
+    assert torch.equal(got, want)
+    mk.reset_launch_counts()
+    full = mk.trace_paths(tables, *rays, SEED, bg, 8, kernel="cuda")
+    assert mk.launch_counts()["launches"] == 1 and mk.launch_counts()["accum_launches"] == 0
+    if not overflowing:
+        assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("name", sorted(ACCUM_CASES))
+def test_accum_segment_adds_onto_the_total_on_card(dev, name):
+    """One launch over a compacted buffer whose padding rows all repeat one
+    ray id, onto a nonzero total: what index_add_ of the launch's radiance
+    delta over every row adds, and the same carried state."""
+    aspect = ACCUM_CASES[name][0]
+    tables = mk.pack_scene(build_scene(name, device=dev))
+    bg = SCENE_DEFAULTS[name]["background"]
+    state = mk.init_state(*_rays(name, aspect, 8192, dev))
+    _, state = mk.trace_segment(tables, state, SEED, bg, 0, 2)
+    count = (state[:, mk.S_AL] > 0.5).sum()
+    cap = mk._tiles(int(2.5 * count.item()))
+    comp, _ = mk.compact(state, count, cap)
+    pad = comp[count:, mk.S_RID].view(torch.int32)
+    assert pad.numel() > 0 and (pad == pad[0]).all()
+    base = torch.rand((3, state.shape[0]), generator=torch.Generator().manual_seed(1)).to(dev)
+    rad, want_state = mk.trace_segment(tables, comp, SEED, bg, 2, 3)
+    want = base.clone()
+    rid = comp[:, mk.S_RID].view(torch.int32).long()
+    for c in range(3):
+        want[c].index_add_(0, rid, rad[c])
+    got = base.clone()
+    none, got_state = mk.trace_segment(tables, comp, SEED, bg, 2, 3, accum=got)
+    assert none is None
+    assert torch.equal(got_state, want_state)
+    assert torch.equal(got, want) and not torch.equal(got, base)
+
+
+def test_accum_rejects_what_the_kernel_does_not_take(dev):
+    tables = mk.pack_scene(build_scene("cornell_box", device=dev))
+    state = mk.init_state(*_rays("cornell_box", 1.0, 1024, dev))
+    bg = (0.0, 0.0, 0.0)
+    before = mk.launch_counts()["launches"]
+    with pytest.raises(TypeError, match="float32"):
+        mk.trace_segment(tables, state, SEED, bg, 0, 1,
+                         accum=torch.zeros((3, 1024), dtype=torch.float64, device=dev))
+    with pytest.raises(TypeError, match="contiguous"):
+        mk.trace_segment(tables, state, SEED, bg, 0, 1,
+                         accum=torch.zeros((1024, 3), device=dev).t())
+    with pytest.raises(ValueError, match=r"\[3, cols\]"):
+        mk.trace_segment(tables, state, SEED, bg, 0, 1, accum=torch.zeros((4, 1024), device=dev))
+    with pytest.raises(ValueError, match="is on cpu"):
+        mk.trace_segment(tables, state, SEED, bg, 0, 1, accum=torch.zeros((3, 1024)))
+    assert mk.launch_counts()["launches"] == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
