@@ -289,10 +289,12 @@ def segment_bound(tables, scene, state, seed, bg, b0, n_b, mk):
     ttype = tables.attr_i[mk._AI_TTYPE]
     live_rb = noise_hits = image_hits = live_misses = 0
     st = state
+    total = zero_total(state, mk)   # not read
     for k in range(n_b):
         live = st[:, mk.S_AL] > 0.5
         live_rb += int(live.sum().item())
-        _, st, win = mk.trace_segment(tables, st, seed, bg, b0 + k, 1, want_winners=True)
+        st, win = mk.trace_segment(tables, st, seed, bg, b0 + k, 1, accum=total,
+                                   want_winners=True)
         w = win[0]
         tt = ttype[w.clamp(min=0).long()]
         noise_hits += int(((w >= 0) & (tt == mk.TEX_NOISE)).sum().item())
@@ -325,6 +327,27 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def zero_total(state, mk):
+    """A zero radiance total [3, cols] for launches over `state`: cols
+    covers its largest ray id (a compacted buffer keeps the uncompacted
+    one's ids). Reads the ids back: call it outside timed work."""
+    import torch
+
+    cols = int(state[:, mk.S_RID].view(torch.int32).max().item()) + 1
+    return torch.zeros((3, cols), device=state.device)
+
+
+def row_radiance(total, state, mk):
+    """[3, m]: the radiance each row of `state` added into the zero total
+    `total` in one launch, the column at its ray id for a row alive at
+    entry and 0 for a dead one (a compacted buffer's padding rows repeat
+    one ray id)."""
+    import torch
+
+    rid = state[:, mk.S_RID].view(torch.int32).long()
+    return torch.where(state[:, mk.S_AL] > 0.5, total[:, rid], 0.0)
+
+
 def alive_steps(fn, tables, state, bg, depth, mk):
     """[depth, m] bool: which rays are alive entering each bounce, by
     stepping fn (the kernel wrapper or the plain version) one bounce at a
@@ -332,23 +355,26 @@ def alive_steps(fn, tables, state, bg, depth, mk):
     import torch
 
     alive = []
+    total = zero_total(state, mk)   # not read
     for b in range(depth):
         alive.append(state[:, mk.S_AL] > 0.5)
-        _, state = fn(tables, state, 42, bg, b, 1)
+        state = fn(tables, state, 42, bg, b, 1, accum=total)
     return torch.stack(alive)
 
 
 def winners_check(mk, tables, state, bg, depth, what):
     """The want_winners variant against the radiance-only launch (radiance
     and state bit-equal) and against the plain version (winners on the
-    entries alive on both sides, radiance by compare()). Returns (kernel
+    entries alive on both sides, radiance by compare()), over an
+    uncompacted state, whose ray ids are its rows. Returns (kernel
     radiance [3, m], kernel winners, plain ms, report)."""
     import torch
 
-    rk, sk, wk = mk.trace_segment(tables, state, 42, bg, 0, depth, want_winners=True)
-    r0, s0 = mk.trace_segment(tables, state, 42, bg, 0, depth)
-    (rp, _, wp), plain_ms = timed(
-        lambda: mk.trace_segment_plain(tables, state, 42, bg, 0, depth, want_winners=True))
+    rk, r0, rp = (zero_total(state, mk) for _ in range(3))
+    sk, wk = mk.trace_segment(tables, state, 42, bg, 0, depth, accum=rk, want_winners=True)
+    s0 = mk.trace_segment(tables, state, 42, bg, 0, depth, accum=r0)
+    (_, wp), plain_ms = timed(lambda: mk.trace_segment_plain(
+        tables, state, 42, bg, 0, depth, accum=rp, want_winners=True))
     check(torch.equal(rk, r0) and torch.equal(sk, s0),
           f"{what}: want_winners changed the radiance or the state")
     n_prims = tables.s_pad + tables.r_pad
@@ -1002,12 +1028,14 @@ def main() -> int:
             if out_cap < state.shape[0]:
                 state, ovf = mk.compact(state, count, out_cap)
                 check(not ovf.item(), f"{name} main-path schedule overflowed at bounce {b0}")
-            rk, sk = mk.trace_segment(tables, state, 42, bg, b0, n_b)
-            rp, sp = mk.trace_segment_plain(tables, state, 42, bg, b0, n_b)
+            tk, tp = zero_total(state, mk), zero_total(state, mk)
+            sk = mk.trace_segment(tables, state, 42, bg, b0, n_b, accum=tk)
+            sp = mk.trace_segment_plain(tables, state, 42, bg, b0, n_b, accum=tp)
             torch.cuda.synchronize()
             # late segments hold a few thousand live rays, whose mean radiance
             # is ~1e-4: the means bar gets test_pallas.py:89-91's atol 5e-3
-            res = compare(rk, rp, f"{name} main-path segment b0={b0} x{n_b} cap={out_cap}",
+            res = compare(row_radiance(tk, state, mk), row_radiance(tp, state, mk),
+                          f"{name} main-path segment b0={b0} x{n_b} cap={out_cap}",
                           mean_atol=TEX_MEAN_ATOL)
             # alive fractions are reported, not held to a bar: the rays still
             # alive after bounce 20 are trapped between glass and metal, where
@@ -1015,10 +1043,12 @@ def main() -> int:
             # segment's 30 bounces; their radiance is held by compare() above
             alive_k = (sk[:, mk.S_AL] > 0.5).float().mean().item()
             alive_p = (sp[:, mk.S_AL] > 0.5).float().mean().item()
+            # the timed launches add into the totals compared above
             k_ms, k_host_ms = gpu_ms(
-                lambda: mk.trace_segment(tables, state, 42, bg, b0, n_b), 10)
+                lambda: mk.trace_segment(tables, state, 42, bg, b0, n_b, accum=tk), 10)
             group, blocks = mk.trace_segment.last_shape
-            p_ms = synced_ms(lambda: mk.trace_segment_plain(tables, state, 42, bg, b0, n_b), 1)
+            p_ms = synced_ms(
+                lambda: mk.trace_segment_plain(tables, state, 42, bg, b0, n_b, accum=tp), 1)
             bnd = segment_bound(tables, scene, state, 42, bg, b0, n_b, mk)
             bound_ms = max(bnd["ops_ms"], bnd["bytes_ms"])
             seg = dict(b0=b0, bounces=n_b, cap=out_cap, **bnd, kernel_ms=k_ms,
@@ -1191,9 +1221,11 @@ def main() -> int:
         wstate = mk.init_state(*wrays)
         rk, wk, _, res = winners_check(mk, wtab, wstate, wbg, depth,
                                        f"{name} {CMP_SIDE ** 2} rays depth {depth} winners")
+        scratch = zero_total(wstate, mk)   # the timed launches add here
         w_ms, w_host_ms = gpu_ms(lambda: mk.trace_segment(
-            wtab, wstate, 42, wbg, 0, depth, want_winners=True), 5)
-        r_ms, _ = gpu_ms(lambda: mk.trace_segment(wtab, wstate, 42, wbg, 0, depth), 5)
+            wtab, wstate, 42, wbg, 0, depth, accum=scratch, want_winners=True), 5)
+        r_ms, _ = gpu_ms(
+            lambda: mk.trace_segment(wtab, wstate, 42, wbg, 0, depth, accum=scratch), 5)
         emit("winners_vs_plain", scene=name, rays=CMP_SIDE ** 2, depth=depth, **res,
              kernel_ms_winners=w_ms, kernel_host_ms_winners=w_host_ms,
              kernel_ms_radiance_only=r_ms, card=card)
@@ -1287,10 +1319,11 @@ def main() -> int:
     pstate = mk.init_state(o, d, t, pid, sid)
     _, _, win_plain_ms, win_res = winners_check(
         mk, tables, pstate, bg, MAIN_DEPTH, f"pass-2 shape {pstate.shape[0]} lanes winners")
+    scratch = zero_total(pstate, mk)   # the timed launches add here
     win_ms, win_host_ms = gpu_ms(lambda: mk.trace_segment(
-        tables, pstate, 42, bg, 0, MAIN_DEPTH, want_winners=True), 3)
+        tables, pstate, 42, bg, 0, MAIN_DEPTH, accum=scratch, want_winners=True), 3)
     rad_ms, rad_host_ms = gpu_ms(
-        lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH), 3)
+        lambda: mk.trace_segment(tables, pstate, 42, bg, 0, MAIN_DEPTH, accum=scratch), 3)
     group, blocks = mk.trace_segment.last_shape
     rad_bnd = segment_bound(tables, scene, pstate, 42, bg, 0, MAIN_DEPTH, mk)
     # the winners output adds its bytes, written once
@@ -1456,10 +1489,12 @@ def main() -> int:
         tab = mk.pack_scene(build_scene(name, device=dev))
         ocam = render_mod.camera_for_scene(name, w / h, dev)
         batch = render_mod.batch_size(w * h, SCENES_SPP, 1 << 20)
-        flags = [render_mod.render_batch_compact(
-            tab, ocam, p["background"], 42, s0, torch.zeros((h, w, 3), device=dev), width=w,
-            height=h, n_samples=min(batch, SCENES_SPP - s0), max_depth=MAIN_DEPTH,
-            capacities=caps)[1] for s0 in range(0, SCENES_SPP, batch)]
+        flags = []
+        for s0 in range(0, SCENES_SPP, batch):
+            n = min(batch, SCENES_SPP - s0)
+            state = mk.ray_state(ocam, 42, s0, width=w, height=h, n_samples=n)
+            flags.append(mk.trace_paths_compact(tab, state, w * h * n, 42, p["background"],
+                                                MAIN_DEPTH, capacities=caps)[1])
         return int(torch.stack(flags).sum().item())
 
     for name, p in SCENE_DEFAULTS.items():

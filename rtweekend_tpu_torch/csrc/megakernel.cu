@@ -9,21 +9,17 @@
 // 2S+6R coefficient rows (min t, lowest index on ties), the winner's
 // attributes, PCG4D draws at streams BOUNCE_STREAM0+2(b0+b) and +1,
 // Lambertian / metal / dielectric scatter with the solid, checker, noise
-// or image texture, and the sky / emission radiance update. It emits the
-// segment's radiance delta [3, m] and the carried state [m, 14]. Rays
-// dead at entry pass through untouched.
-//
-// Given an accumulation buffer `accum` [3, cols] instead, a finished ray
-// adds its radiance into column ray_id (the state's S_RID) and no radiance
-// delta is written: trace_paths_compact, the compacted trace, sums its
-// segments there. A live ray id occurs in one row of a buffer and the
-// segments of a batch run in order on one stream, so the add is a plain
-// read-modify-write: the same float32 add, on the same operands in the same
-// order, as a per-channel index_add_ of the radiance delta at the ray ids.
-// Rows dead at entry, among them the compacted buffer's padding rows, which
-// all repeat one ray id, touch no column: an index_add_ adds each padding
-// row's zero at that one id, and those same-address atomics serialize
-// (PERF.md).
+// or image texture, and the sky / emission radiance update. It writes the
+// carried state [m, 14], and each finished ray adds its radiance into the
+// caller's total `accum` [3, cols] at column ray_id (the state's S_RID):
+// trace_paths sums its one launch there, trace_paths_compact, the
+// compacted trace, its segments. A live ray id occurs in one row of a
+// buffer and the segments of a batch run in order on one stream, so the add
+// is a plain read-modify-write, one float32 add per channel. Rows dead at
+// entry pass through untouched and add nothing; among them are the
+// compacted buffer's padding rows, which all repeat one ray id (an
+// index_add_ of their zeros at that one id would serialize on same-address
+// atomics, PERF.md).
 //
 // Variants, as template flags (the C entry point picks the instantiation):
 // - HAS_MOTION: the moving-center lerp (final_scene);
@@ -201,8 +197,7 @@ struct Params {
   const int* images;     // packed RGBA texels, r | g<<8 | b<<16 | a<<24
   const float* state_in; // [m, SW]
   float* state_out;      // [m, SW]
-  float* rad;            // [3, m]; null when accum is given
-  float* accum;          // [3, accum_cols], added to at each live ray's id, or null
+  float* accum;          // [3, accum_cols], added to at each live ray's id
   int accum_cols;
   int* winners;          // [n_bounces, m] when WANT_WINNERS, else null
   int m;
@@ -554,11 +549,6 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) bounce_kernel(const Params 
 #pragma unroll
             for (int c = 0; c < SW; ++c) out[c] = in[c];
             if (al_in > 0.5f) out[S_AL] = 1.0f;
-            if (p.accum == nullptr) {
-              p.rad[ray] = 0.f;
-              p.rad[m + ray] = 0.f;
-              p.rad[2 * m + ray] = 0.f;
-            }
             if (WANT_WINNERS) {
               for (int bb = 0; bb < p.n_bounces; ++bb) p.winners[(size_t)bb * m + ray] = -1;
             }
@@ -757,18 +747,12 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) bounce_kernel(const Params 
         out[S_TR] = tr; out[S_TG] = tg; out[S_TB] = tb;
         out[S_AL] = alive ? 1.0f : 0.0f;
         out[S_RID] = in[S_RID];
-        if (p.accum != nullptr) {
-          // the ray's own column: no other row of this launch adds there
-          float* acc = p.accum + __float_as_int(in[S_RID]);
-          const size_t cols = (size_t)p.accum_cols;
-          acc[0] = __fadd_rn(acc[0], rr);
-          acc[cols] = __fadd_rn(acc[cols], rg);
-          acc[2 * cols] = __fadd_rn(acc[2 * cols], rb);
-        } else {
-          p.rad[i] = rr;
-          p.rad[m + i] = rg;
-          p.rad[2 * m + i] = rb;
-        }
+        // the ray's own column: no other row of this launch adds there
+        float* acc = p.accum + __float_as_int(in[S_RID]);
+        const size_t cols = (size_t)p.accum_cols;
+        acc[0] = __fadd_rn(acc[0], rr);
+        acc[cols] = __fadd_rn(acc[cols], rg);
+        acc[2 * cols] = __fadd_rn(acc[2 * cols], rb);
       }
       i = -1;
     }
@@ -968,21 +952,21 @@ extern "C" int rtw_bounce_blocks_per_sm(int n_rows, int variant, int winners,
 // sky. `bg` holds six floats: the flat sky (or the gradient sky's bottom),
 // then the gradient sky's top. `winners` is null for the radiance-only
 // variant, else an [n_bounces, m] int32 buffer the kernel fills completely.
-// `accum` is null for the radiance delta `rad` [3, m]; else it is a
-// [3, accum_cols] float32 buffer, every live row's ray id lies in [0,
-// accum_cols) and occurs in no other live row, each finished ray adds its
-// radiance at its id, and `rad` is not touched (may be null).
+// `accum` is a [3, accum_cols] float32 buffer, never null: every live row's
+// ray id lies in [0, accum_cols) and occurs in no other live row, and each
+// finished ray adds its radiance at its id.
 extern "C" int rtw_bounce_segment(
     const void* coef, int n_rows, int coef_stride,
     const void* attr_f, const void* attr_i, int attr_stride,
     int s_pad, int r_pad, int s_live, int r_live, int variant,
     const void* perm, const void* grad, const void* images,
-    const void* state_in, void* state_out, void* rad, void* accum, int accum_cols,
+    const void* state_in, void* state_out, void* accum, int accum_cols,
     void* winners, int m, unsigned int seed, float bg_r, float bg_g, float bg_b,
     float bg1_r, float bg1_g, float bg1_b,
     int b0, int n_bounces, float t_min,
     int group, int blocks, void* counter, void* stream) {
-  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || blocks < 1)
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || blocks < 1 ||
+      accum == nullptr)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.coef = static_cast<const float*>(coef);
@@ -1000,7 +984,6 @@ extern "C" int rtw_bounce_segment(
   p.images = static_cast<const int*>(images);
   p.state_in = static_cast<const float*>(state_in);
   p.state_out = static_cast<float*>(state_out);
-  p.rad = static_cast<float*>(rad);
   p.accum = static_cast<float*>(accum);
   p.accum_cols = accum_cols;
   p.winners = static_cast<int*>(winners);

@@ -15,10 +15,11 @@ Compaction is then a single row gather, and the kernel reads and writes
 on the card in one launch of `raygen_kernel` (csrc/megakernel.cu), which
 the host never waits on; elsewhere from the camera's PyTorch ops.
 
-The compacted driver (`trace_paths_compact`) traces a few bounces per
-launch and gathers the survivors into a smaller buffer between launches;
-each launch adds its finished rays' radiance into the batch total at their
-ray ids as it writes them out (`accum`), so no scatter follows it.
+Every launch adds its finished rays' radiance into a caller's total at
+their ray ids as it writes them out (`accum`). The compacted trace
+(`trace_paths_compact`) traces a few bounces per launch and gathers the
+survivors into a smaller buffer between launches, and its launches add
+into one batch total, so no scatter follows them.
 Buffer sizes come from a static per-bounce capacity schedule, so nothing
 is read back to the host: the alive count and the overflow flag stay on
 the device, and a capacity overflow raises the flag instead of dropping
@@ -422,22 +423,21 @@ def _image_rgb(tables: Tables, j, is_s, onx, ony, onz, px, py, pz):
 
 
 def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
-                        n_bounces: int, t_min: float = T_MIN, *,
-                        want_winners: bool = False, accum=None):
+                        n_bounces: int, t_min: float = T_MIN, *, accum,
+                        want_winners: bool = False):
     """n_bounces bounces from global bounce b0 for every row of `state`,
     with plain tensor ops: the TPU kernel's bounce_body
     (megakernel.py:588-893), op for op, over flat [m] ray vectors.
-    Returns (radiance delta [3, m], new state [m, 14]); dead rows pass
-    through untouched and add nothing. want_winners adds winners
-    [n_bounces, m] int32: the closest-hit primitive index of each bounce
+    Each row alive at entry adds its radiance into accum[:, ray_id], accum
+    a float32 [3, cols] buffer; the rows' ray ids must lie below cols, the
+    live rows' distinct (init_state's and trace_paths_compact's buffers).
+    Rows dead at entry pass through untouched and add nothing. Returns the
+    new state [m, 14]; want_winners returns (new state, winners
+    [n_bounces, m] int32): the closest-hit primitive index of each bounce
     (spheres first, then s_pad + rect), -1 on a miss and wherever the ray
     is dead (the TPU kernel leaves those entries unspecified).
     background: 3 floats (flat sky) or a (bottom, top) pair (gradient
-    sky). accum, a float32 [3, cols] buffer: each row alive at entry adds
-    its radiance into accum[:, ray_id] instead (a row dead at entry adds
-    nothing), and the radiance delta returned is None; the rows' ray ids
-    must lie below cols, the live rows' distinct (trace_paths_compact's
-    buffers)."""
+    sky)."""
     (bg_r, bg_g, bg_b, bg_r1, bg_g1, bg_b1), has_sky = sky_floats(background)
     s, r = tables.s_pad, tables.r_pad
     n_prims = s + r
@@ -640,17 +640,14 @@ def trace_segment_plain(tables: Tables, state, seed: int, background, b0: int,
         ox, oy, oz, dx, dy, dz, time, state[:, S_PID], state[:, S_SID],
         tr, tg, tb, al_out, state[:, S_RID],
     ], dim=1)
-    rad = torch.stack([rr, rg, rb])
-    if accum is not None:
-        # a row dead at entry adds exactly +0.0, which changes no bit of
-        # accum: the kernel's write-out, without a mask that would sync
-        rid = _int_col(state, S_RID).long()
-        for c in range(3):
-            accum[c].index_add_(0, rid, rad[c])
-        rad = None
+    # a row dead at entry adds exactly +0.0, which changes no bit of accum:
+    # the kernel's write-out, without a mask that would sync
+    rid = _int_col(state, S_RID).long()
+    for c, rad in enumerate((rr, rg, rb)):
+        accum[c].index_add_(0, rid, rad)
     if want_winners:
-        return rad, new_state, torch.stack(winners)
-    return rad, new_state
+        return new_state, torch.stack(winners)
+    return new_state
 
 
 def _check_cuda_args(tables: Tables, state: torch.Tensor):
@@ -768,12 +765,9 @@ def _check_accum(accum, state: torch.Tensor):
 
 def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
             n_bounces: int, t_min: float, want_winners: bool, group: int, blocks: int,
-            counter: torch.Tensor, stream: int, accum=None):
-    """Allocate the outputs and launch once through the C entry; with
-    accum, no radiance delta is allocated (None is returned for it)."""
+            counter: torch.Tensor, stream: int, accum):
+    """Allocate the outputs and launch once through the C entry."""
     m = state.shape[0]
-    rad = (torch.empty((3, m), dtype=torch.float32, device=state.device)
-           if accum is None else None)
     out = torch.empty_like(state)
     # the kernel writes every entry, -1 after a ray's death included
     win = (torch.empty((n_bounces, m), dtype=torch.int32, device=state.device)
@@ -783,8 +777,7 @@ def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
         tables.attr_f.data_ptr(), tables.attr_i.data_ptr(), tables.attr_f.shape[1],
         tables.s_pad, tables.r_pad, tables.s_live, tables.r_live, variant,
         tables.perm.data_ptr(), tables.grad.data_ptr(), tables.images.data_ptr(),
-        state.data_ptr(), out.data_ptr(), None if rad is None else rad.data_ptr(),
-        None if accum is None else accum.data_ptr(), 0 if accum is None else accum.shape[1],
+        state.data_ptr(), out.data_ptr(), accum.data_ptr(), accum.shape[1],
         win.data_ptr() if want_winners else None, m,
         int(seed) & 0xFFFFFFFF, *bg, int(b0), int(n_bounces), float(t_min),
         group, blocks, counter.data_ptr(), stream,
@@ -792,12 +785,12 @@ def _launch(lib, tables: Tables, state, seed: int, bg, variant: int, b0: int,
     if rc != 0:
         msg = lib.rtw_error_string(rc).decode()
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {rc} ({msg})")
-    return rad, out, win
+    return out, win
 
 
 def trace_segment(tables: Tables, state, seed: int, background, b0: int,
-                  n_bounces: int, t_min: float = T_MIN, *, want_winners: bool = False,
-                  accum=None, _group: int | None = None):
+                  n_bounces: int, t_min: float = T_MIN, *, accum, want_winners: bool = False,
+                  _group: int | None = None):
     """The bounce kernel (csrc/megakernel.cu) for CUDA tensors; the plain
     version for CPU tensors. Same contract as trace_segment_plain.
 
@@ -810,20 +803,18 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
     for small buffers); `_group` forces G (tests). `last_shape` is the
     (G, blocks) of the last launch. LAUNCHES counts the launches.
 
-    accum: the kernel adds each finished ray's radiance into accum[:,
-    ray_id] as it writes the ray out, and writes no radiance delta (None
-    is returned for it); rows dead at entry add nothing. Nothing is
-    synchronised to check the ids: the live ray ids of the rows must be
-    distinct and below accum's column count."""
+    The kernel adds each finished ray's radiance into accum[:, ray_id] as
+    it writes the ray out. Nothing is synchronised to check the ids: the
+    live ray ids of the rows must be distinct and below accum's column
+    count."""
     if state.device.type == "cpu":
         return trace_segment_plain(tables, state, seed, background, b0,
-                                   n_bounces, t_min, want_winners=want_winners, accum=accum)
+                                   n_bounces, t_min, accum=accum, want_winners=want_winners)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
     bg, has_sky = sky_floats(background)
     _check_cuda_args(tables, state)
-    if accum is not None:
-        _check_accum(accum, state)
+    _check_accum(accum, state)
     from rtweekend_tpu_torch.ops.cuda import build
 
     lib, _ = build.load()
@@ -834,30 +825,27 @@ def trace_segment(tables: Tables, state, seed: int, background, b0: int,
         _blocks_per_sm(lib, variant, want_winners, tables.coef.shape[0]),
         2 * tables.s_live + 6 * tables.r_live, n_bounces, _group)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rad, out, win = _launch(lib, tables, state, seed, bg, variant, b0, n_bounces, t_min,
-                            want_winners, group, blocks, _counter(dev, stream), stream, accum)
+    out, win = _launch(lib, tables, state, seed, bg, variant, b0, n_bounces, t_min,
+                       want_winners, group, blocks, _counter(dev, stream), stream, accum)
     trace_segment.last_shape = (group, blocks)
     LAUNCHES["launches"] += 1
-    LAUNCHES["accum_launches"] += accum is not None
     LAUNCHES["noise_launches"] += tables.has_noise
     LAUNCHES["image_launches"] += tables.has_image
     LAUNCHES["sky_launches"] += has_sky
     if want_winners:
         LAUNCHES["winners_launches"] += 1
-        return rad, out, win
-    return rad, out
+        return out, win
+    return out
 
 
 # launches of the hand-written kernels, by counter: "launches" counts the
 # bounce kernel's of every variant, "winners_launches", "noise_launches",
 # "image_launches" and "sky_launches" those with that variant compiled in,
-# "raygen_launches" raygen_kernel's; "accum_launches" the bounce kernel's
-# that added their radiance into a caller's buffer at the ray ids (every
-# launch of trace_paths_compact on the card); "retrace_launches" counts
+# "raygen_launches" raygen_kernel's; "retrace_launches" counts
 # render._Tracer.recover's uncompacted re-traces of overflowed batches, on
 # every device
 LAUNCH_COUNTS = ("launches", "winners_launches", "noise_launches", "image_launches",
-                 "sky_launches", "raygen_launches", "retrace_launches", "accum_launches")
+                 "sky_launches", "raygen_launches", "retrace_launches")
 LAUNCHES = dict.fromkeys(LAUNCH_COUNTS, 0)
 
 
@@ -896,12 +884,14 @@ def trace_paths(tables: Tables, origins, dirs, times, pixel_ids, sample_ids,
     n = origins.shape[0]
     state = init_state(origins, dirs, times, pixel_ids, sample_ids)
     fn = segment_fn(kernel, state.device)
+    # every ray id is its row: each ray's radiance lands alone in its column
+    total = torch.zeros((3, state.shape[0]), dtype=torch.float32, device=state.device)
     if return_winners:
-        rad, _, win = fn(tables, state, seed, background, 0, max_depth, t_min,
-                         want_winners=True)
-        return rad[:, :n].t(), win[:, :n]
-    rad, _ = fn(tables, state, seed, background, 0, max_depth, t_min)
-    return rad[:, :n].t()
+        _, win = fn(tables, state, seed, background, 0, max_depth, t_min, accum=total,
+                    want_winners=True)
+        return total[:, :n].t(), win[:, :n]
+    fn(tables, state, seed, background, 0, max_depth, t_min, accum=total)
+    return total[:, :n].t()
 
 
 def _tiles(n: int) -> int:
@@ -974,6 +964,6 @@ def trace_paths_compact(tables: Tables, state, n: int, seed: int, background,
         if out_cap < state.shape[0]:
             state, ovf = compact(state, count, out_cap)
             overflow = overflow | ovf
-        _, state = fn(tables, state, seed, background, b0, n_b, accum=total)
+        state = fn(tables, state, seed, background, b0, n_b, accum=total)
         count = (state[:, S_AL] > 0.5).sum()
     return total[:, :n].t(), overflow

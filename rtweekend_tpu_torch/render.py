@@ -46,7 +46,6 @@ from rtweekend_tpu_torch.ops.cuda.megakernel import (
     CAPS_OPEN,
     KERNELS,
     LAUNCHES,
-    Tables,
     camera_floats,
     pack_scene,
     ray_state,
@@ -81,13 +80,6 @@ def resolve_kernel(kernel: str, dtype: torch.dtype) -> str:
 def _pixel_sums(radiance, n_samples: int):
     """Per-pixel sums [n_pix, 3] of a pixel-major batch's radiance."""
     return radiance.reshape(-1, n_samples, 3).sum(dim=1)
-
-
-def _accum_batch(accum, radiance, *, width: int, height: int, n_samples: int):
-    """accum [H, W, 3] += per-pixel sums; row 0 is the image TOP (the
-    reference flips at store, main.zig:396). Updates accum in place."""
-    accum += _pixel_sums(radiance, n_samples).reshape(height, width, 3).flip(0)
-    return accum
 
 
 def to_framebuffer(sums, width: int, height: int):
@@ -175,46 +167,6 @@ def adaptive_capacities(scene_name: str, background, max_depth: int, *,
     _, sched = solve(0, 1.0, max_boundaries)
     _ADAPTIVE_CAPS_CACHE[key] = tuple(sched)
     return _ADAPTIVE_CAPS_CACHE[key]
-
-
-def render_batch_compact(tables: Tables, camera, background, seed, sample_start,
-                         accum, *, width, height, n_samples, max_depth,
-                         capacities, kernel="auto"):
-    """One sample batch through the compacted driver. Returns (accum,
-    overflow flag); the flag stays on the device."""
-    state = ray_state(camera, seed, sample_start, width=width, height=height,
-                      n_samples=n_samples, kernel=kernel)
-    radiance, overflow = trace_paths_compact(
-        tables, state, width * height * n_samples, seed, background, max_depth,
-        capacities=capacities, kernel=kernel,
-    )
-    accum = _accum_batch(accum, radiance, width=width, height=height,
-                         n_samples=n_samples)
-    return accum, overflow
-
-
-def render_batch(tables: Tables, camera, background, seed, sample_start, accum, *,
-                 width, height, n_samples, max_depth, kernel="auto"):
-    """One sample batch, all bounces in one launch, no compaction."""
-    o, d, t, pixel_ids, sample_ids = batch_rays(
-        camera, seed, sample_start, width=width, height=height, n_samples=n_samples
-    )
-    radiance = trace_paths(tables, o, d, t, pixel_ids, sample_ids, seed,
-                           background, max_depth, kernel=kernel)
-    return _accum_batch(accum, radiance, width=width, height=height,
-                        n_samples=n_samples)
-
-
-def render_batch_eager(scene: Scene, camera, background, seed, sample_start, accum, *,
-                       width, height, n_samples, max_depth):
-    """One sample batch through the eager integrator, in the scene's dtype."""
-    o, d, t, pixel_ids, sample_ids = batch_rays(
-        camera, seed, sample_start, width=width, height=height, n_samples=n_samples
-    )
-    radiance = integrator.trace_paths(scene, o, d, t, pixel_ids, sample_ids, seed,
-                                      background, max_depth)
-    return _accum_batch(accum, radiance, width=width, height=height,
-                        n_samples=n_samples)
 
 
 def batch_size(n_pix: int, samples_per_pixel: int, rays_per_chunk: int) -> int:

@@ -85,12 +85,13 @@ def _live_ray_bounces(scene, camera, seed: int) -> int:
     for start in range(0, SPP_MEASURE, batch):
         state = mk.init_state(*batch_rays(camera, seed, start, width=WIDTH, height=HEIGHT,
                                           n_samples=batch))
+        scratch = torch.zeros((3, state.shape[0]), device=state.device)   # not read
         for b in range(MAX_DEPTH):
             live = int((state[:, mk.S_AL] > 0.5).sum().item())
             if live == 0:
                 break
             total += live
-            _, state = mk.trace_segment(tables, state, seed, BACKGROUND, b, 1)
+            state = mk.trace_segment(tables, state, seed, BACKGROUND, b, 1, accum=scratch)
     return total
 
 

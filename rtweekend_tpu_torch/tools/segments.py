@@ -12,7 +12,8 @@ launch at depth 50 (the train step's shape), radiance-only and with
 winners; and `scan`, the same lanes for one bounce (every lane live: the
 primitive scan at its widest). One JSON line per launch (b0, bounces, lanes, the launch shape
 where the wrapper reports one, device ms and host ms per call by
-utils/timing.device_ms, the sha256 of its radiance, state and winners)
+utils/timing.device_ms, the sha256 of the radiance it adds onto a zero
+total, its state and winners)
 and one summary line per scene.
 
 `--root` imports rtweekend_tpu_torch from another checkout instead of
@@ -82,23 +83,30 @@ def main(argv=None) -> int:
     print(json.dumps(dict(phase="segments_setup", root=root, card=card)), flush=True)
     dev = torch.device("cuda")
 
-    def one(tables, state, bg, b0, n_b, winners, reps):
-        out = mk.trace_segment(tables, state, SEED, bg, b0, n_b, want_winners=winners)
-        ms, host_ms = device_ms(
-            lambda: mk.trace_segment(tables, state, SEED, bg, b0, n_b, want_winners=winners),
-            reps)
+    def one(tables, state, cols, bg, b0, n_b, winners, reps):
+        """Time one launch over `state`, whose ray ids lie below cols; returns
+        ((total, state[, winners]) of the launch onto a zero total, row)."""
+        def launch(total, g=None):
+            return mk.trace_segment(tables, state, SEED, bg, b0, n_b, accum=total,
+                                    want_winners=winners, _group=g)
+
+        def fresh(g=None):
+            total = torch.zeros((3, cols), device=dev)
+            out = launch(total, g)
+            return (total, *out) if winners else (total, out)
+
+        out = fresh()
+        scratch = torch.zeros((3, cols), device=dev)   # the timed launches add here
+        ms, host_ms = device_ms(lambda: launch(scratch), reps)
         shape = getattr(mk.trace_segment, "last_shape", None)
         row = dict(b0=b0, bounces=n_b, lanes=state.shape[0], winners=winners,
                    shape=shape, ms=ms, host_ms=host_ms, sha=digest(*out))
         if args.groups:
             row["ms_by_group"] = {}
             for g in mk.GROUPS:
-                def launch(g=g):
-                    return mk.trace_segment(tables, state, SEED, bg, b0, n_b,
-                                            want_winners=winners, _group=g)
-                if digest(*launch()) != row["sha"]:
+                if digest(*fresh(g)) != row["sha"]:
                     raise AssertionError(f"G={g} wrote other bytes at b0={b0}")
-                row["ms_by_group"][g] = device_ms(launch, reps)[0]
+                row["ms_by_group"][g] = device_ms(lambda g=g: launch(scratch, g), reps)[0]
         return out, row
 
     for name in args.scenes:
@@ -113,19 +121,20 @@ def main(argv=None) -> int:
         sid = torch.zeros_like(pid)
         o, d, t = generate_rays(cam, w, h, pid, sid, SEED)
         state = mk.init_state(o, d, t, pid, sid)
+        cols = state.shape[0]
         rows = []
         if name == "pass2":
             for winners in (False, True):
-                _, row = one(tables, state, bg, 0, DEPTH, winners, max(2, args.reps // 8))
+                _, row = one(tables, state, cols, bg, 0, DEPTH, winners, max(2, args.reps // 8))
                 rows.append(row)
         elif name == "scan":
-            rows.append(one(tables, state, bg, 0, 1, False, args.reps)[1])
+            rows.append(one(tables, state, cols, bg, 0, 1, False, args.reps)[1])
         else:
             count = torch.tensor(o.shape[0], device=dev)
             for b0, n_b, cap in mk.schedule(o.shape[0], DEPTH, render_mod._capacities_for(bg)):
                 if cap < state.shape[0]:
                     state, _ = mk.compact(state, count, cap)
-                out, row = one(tables, state, bg, b0, n_b, False, args.reps)
+                out, row = one(tables, state, cols, bg, b0, n_b, False, args.reps)
                 rows.append(row)
                 state = out[1]
                 count = (state[:, mk.S_AL] > 0.5).sum()

@@ -1,11 +1,12 @@
-"""The bounce segment's accumulation contract (`accum`): each row alive at
-entry adds its radiance into the caller's [3, cols] buffer at its ray id,
-and rows dead at entry, among them a compacted buffer's padding rows that
-all repeat one ray id, add nothing. Held here on the plain version (the
-kernel's twin on the CPU; tests/test_torch_cuda.py holds the kernel) against
-the radiance delta scattered by a per-channel index_add_ over every row,
-and trace_paths_compact built on it against that scatter and against the
-uncompacted trace. Every comparison is bit for bit.
+"""The bounce segment's one write-out (`accum`): each row alive at entry
+adds its radiance into the caller's [3, cols] total at its ray id, and rows
+dead at entry, among them a compacted buffer's padding rows that all repeat
+one ray id, add nothing. Held here on the plain version (the kernel's twin
+on the CPU; tests/test_torch_cuda.py holds the kernel): a compacted buffer
+against the same launch on its live rows alone, the winners variant
+against the radiance-only launch and trace_paths' winners, and
+trace_paths_compact against the uncompacted trace, with and without an
+overflow. Every comparison is bit for bit.
 """
 
 import pytest
@@ -41,36 +42,22 @@ def _setup(name, spp=2):
     return tables, rays, n, SCENE_DEFAULTS[name]["background"]
 
 
-def _scatter_compact(tables, state, n, bg, capacities):
-    """trace_paths_compact as a radiance delta a segment, scattered into the
-    total by a dense add before the first compaction and a per-channel
-    index_add_ over every row after it, padding rows included."""
-    total = torch.zeros((3, state.shape[0]))
-    count = torch.tensor(n)
-    overflow = torch.tensor(False)
-    for b0, n_b, out_cap in mk.schedule(n, DEPTH, capacities):
-        if out_cap < state.shape[0]:
-            state, ovf = mk.compact(state, count, out_cap)
-            overflow = overflow | ovf
-        rad, state = mk.trace_segment_plain(tables, state, SEED, bg, b0, n_b)
-        if out_cap == total.shape[1]:
-            total += rad
-        else:
-            rid = mk._int_col(state, mk.S_RID).long()
-            for c in range(3):
-                total[c].index_add_(0, rid, rad[c])
-        count = (state[:, mk.S_AL] > 0.5).sum()
-    return total[:, :n].t(), overflow
+def _segment(tables, state, b0, n_b, bg, cols=None, **kw):
+    """The plain launch over state onto a zero total [3, cols] (default:
+    the state's rows): (total, state[, winners])."""
+    total = torch.zeros((3, state.shape[0] if cols is None else cols))
+    out = mk.trace_segment_plain(tables, state, SEED, bg, b0, n_b, accum=total, **kw)
+    return (total, *out) if kw.get("want_winners") else (total, out)
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_accum_equals_index_add_of_rad(name):
-    """A compacted buffer whose padding rows share one ray id: the segment
-    with accum adds, onto a nonzero total, exactly what index_add_ of its
-    radiance delta over every row adds, and carries the same state."""
+    """A compacted buffer whose padding rows share one ray id, onto a
+    nonzero total: the same total and live rows as the launch over its
+    live rows alone, and the padding rows pass through untouched."""
     tables, rays, n, bg = _setup(name)
     state = mk.init_state(*rays)
-    _, state = mk.trace_segment_plain(tables, state, SEED, bg, 0, 2)
+    _, state = _segment(tables, state, 0, 2, bg)
     count = (state[:, mk.S_AL] > 0.5).sum()
     cap = mk._tiles(int(2.5 * count))
     comp, overflow = mk.compact(state, count, cap)
@@ -79,18 +66,16 @@ def test_accum_equals_index_add_of_rad(name):
     assert pad.numel() > comp.shape[0] // 2 and (pad == pad[0]).all()
 
     base = torch.rand((3, state.shape[0]), generator=torch.Generator().manual_seed(1))
-    rad, want_state = mk.trace_segment_plain(tables, comp, SEED, bg, 2, 3)
     want = base.clone()
-    rid = comp[:, mk.S_RID].view(torch.int32).long()
-    for c in range(3):
-        want[c].index_add_(0, rid, rad[c])
+    live = comp[:count].clone()
+    want_live = mk.trace_segment_plain(tables, live, SEED, bg, 2, 3, accum=want)
     got = base.clone()
-    none, got_state = mk.trace_segment_plain(tables, comp, SEED, bg, 2, 3, accum=got)
-    assert none is None
-    assert torch.equal(got_state, want_state)
+    got_state = mk.trace_segment_plain(tables, comp, SEED, bg, 2, 3, accum=got)
+    assert torch.equal(got_state[:count], want_live)
+    assert torch.equal(got_state[count:], comp[count:])
     assert torch.equal(got, want)
     assert not torch.equal(got, base)   # some ray finished with radiance
-    # the wrapper takes the plain version for CPU tensors, accum included
+    # the wrapper takes the plain version for CPU tensors
     again = base.clone()
     mk.trace_segment(tables, comp, SEED, bg, 2, 3, accum=again)
     assert torch.equal(again, want)
@@ -98,43 +83,49 @@ def test_accum_equals_index_add_of_rad(name):
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_accum_with_winners(name):
-    """accum and want_winners together: the winners and state of the
-    radiance-delta call, and the delta added at the ray ids."""
+    """want_winners changes neither the total nor the state of the
+    radiance-only launch, and its winners are trace_paths'."""
     tables, rays, n, bg = _setup(name, spp=1)
     state = mk.init_state(*rays)
-    rad, st, win = mk.trace_segment_plain(tables, state, SEED, bg, 0, 4, want_winners=True)
-    total = torch.zeros((3, state.shape[0]))
-    none, st2, win2 = mk.trace_segment_plain(tables, state, SEED, bg, 0, 4,
-                                             want_winners=True, accum=total)
-    assert none is None and torch.equal(st2, st) and torch.equal(win2, win)
-    assert torch.equal(total, rad)
+    total, st = _segment(tables, state, 0, 4, bg)
+    total_w, st_w, win = _segment(tables, state, 0, 4, bg, want_winners=True)
+    assert torch.equal(total_w, total) and torch.equal(st_w, st)
+    rad, want = mk.trace_paths(tables, *rays, SEED, bg, 4, return_winners=True)
+    assert torch.equal(win[:, :n], want)
+    assert torch.equal(total[:, :n].t(), rad)
 
 
 @pytest.mark.parametrize("kernel", ["auto", "torch"])
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_compact_trace_equals_scatter_and_uncompacted(name, kernel):
-    """trace_paths_compact (radiance added at the ray ids) is bit-equal to
-    the scatter of radiance deltas, and to trace_paths when nothing
-    overflows."""
+    """trace_paths_compact, under capacities that leave most of each
+    compacted buffer as padding, is bit-equal to the uncompacted
+    trace_paths."""
     tables, rays, n, bg = _setup(name)
     caps = SCENES[name][1]
     state = mk.init_state(*rays)
     got, overflow = mk.trace_paths_compact(tables, state, n, SEED, bg, DEPTH,
                                            capacities=caps, kernel=kernel)
-    want, want_ovf = _scatter_compact(tables, state, n, bg, caps)
-    assert not overflow.item() and not want_ovf.item()
-    assert torch.equal(got, want)
+    assert not overflow.item()
+    assert len(mk.schedule(n, DEPTH, caps)) > 1
     assert torch.equal(got, mk.trace_paths(tables, *rays, SEED, bg, DEPTH, kernel=kernel))
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_compact_trace_overflow_equals_scatter(name):
-    """A capacity that overflows drops live rays: the flag is raised and
-    the total is still the scatter's, bit for bit."""
+    """A capacity that overflows drops live rays: the flag is raised, the
+    rays alive at the boundary past the capacity (in row order) add
+    nothing, and every other ray adds what trace_paths gives it."""
     tables, rays, n, bg = _setup(name)
     caps = SCENES[name][2]
     state = mk.init_state(*rays)
     got, overflow = mk.trace_paths_compact(tables, state, n, SEED, bg, DEPTH, capacities=caps)
-    want, want_ovf = _scatter_compact(tables, state, n, bg, caps)
-    assert overflow.item() and want_ovf.item()
+    assert overflow.item()
+    (_, b, _), (_, _, cap) = mk.schedule(n, DEPTH, caps)
+    _, at_b = _segment(tables, state, 0, b, bg)
+    dropped = torch.nonzero(at_b[:, mk.S_AL] > 0.5).flatten()[cap:]
+    full = mk.trace_paths(tables, *rays, SEED, bg, DEPTH)
+    want = full.clone()
+    want[dropped] = 0.0
+    assert not torch.equal(want, full)   # a dropped ray would have added radiance
     assert torch.equal(got, want)

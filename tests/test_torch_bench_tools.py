@@ -96,10 +96,11 @@ def _live_ray_bounces_one_batch(w, h, spp, depth):
     pid = torch.arange(w * h, dtype=torch.int32).repeat_interleave(spp)
     sid = torch.arange(spp, dtype=torch.int32).repeat(w * h)
     state = mk.init_state(*generate_rays(cam, w, h, pid, sid, 42), pid, sid)
+    total = torch.zeros((3, state.shape[0]))   # not read
     live = 0
     for b in range(depth):
         live += int((state[:, mk.S_AL] > 0.5).sum())
-        _, state = mk.trace_segment_plain(tables, state, 42, bench.BACKGROUND, b, 1)
+        state = mk.trace_segment_plain(tables, state, 42, bench.BACKGROUND, b, 1, accum=total)
     return live
 
 

@@ -47,6 +47,14 @@ def _rays(name, aspect, n, device):
     return (*generate_rays(cam, 32, 32, pid, sid, SEED), pid, sid)
 
 
+def _launch(tables, state, b0, n_b, bg, cols=None, fn=mk.trace_segment, **kw):
+    """fn's launch over state onto a zero total [3, cols] (default: the
+    state's rows, its ray ids when uncompacted): (total, state[, winners])."""
+    total = torch.zeros((3, state.shape[0] if cols is None else cols), device=state.device)
+    out = fn(tables, state, SEED, bg, b0, n_b, accum=total, **kw)
+    return (total, *out) if kw.get("want_winners") else (total, out)
+
+
 SKY = ((1.0, 1.0, 1.0), (0.5, 0.7, 1.0))   # golden_scene's gradient sky
 
 
@@ -136,7 +144,7 @@ def test_general_instantiation_vs_plain_on_card(dev):
     counts = {k: v - before[k] for k, v in mk.launch_counts().items()}
     assert counts == dict(launches=1, winners_launches=0, noise_launches=1,
                           image_launches=1, sky_launches=1, raygen_launches=0,
-                          retrace_launches=0, accum_launches=0)
+                          retrace_launches=0)
     want = mk.trace_paths(tables, *rays, SEED, SKY, 8, kernel="torch")
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -163,37 +171,23 @@ ACCUM_CASES = {   # scene: (aspect, capacities leaving most rows padding, overfl
 }
 
 
-def _scatter_compact(tables, state, n, bg, depth, capacities):
-    """trace_paths_compact's total from the kernel's radiance deltas
-    (accum=None), scattered by a dense add before the first compaction and
-    a per-channel index_add_ over every row, padding included, after it."""
-    total = torch.zeros((3, state.shape[0]), device=state.device)
-    count = torch.full((), n, dtype=torch.int64, device=state.device)
-    overflow = torch.zeros((), dtype=torch.bool, device=state.device)
-    for b0, n_b, out_cap in mk.schedule(n, depth, capacities):
-        if out_cap < state.shape[0]:
-            state, ovf = mk.compact(state, count, out_cap)
-            overflow = overflow | ovf
-        rad, state = mk.trace_segment(tables, state, SEED, bg, b0, n_b)
-        if out_cap == total.shape[1]:
-            total += rad
-        else:
-            rid = state[:, mk.S_RID].view(torch.int32).long()
-            for c in range(3):
-                total[c].index_add_(0, rid, rad[c])
-        count = (state[:, mk.S_AL] > 0.5).sum()
-    return total[:, :n].t(), overflow
+def _dropped(tables, state, n, bg, caps):
+    """Row ids of the rays a one-boundary schedule drops: those alive at
+    its boundary past its capacity, in row order (compact's choice)."""
+    (_, b, _), (_, _, cap) = mk.schedule(n, 8, caps)
+    _, at_b = _launch(tables, state, 0, b, bg)
+    return torch.nonzero(at_b[:, mk.S_AL] > 0.5).flatten()[cap:]
 
 
 @pytest.mark.parametrize("overflowing", [False, True], ids=["padding", "overflow"])
 @pytest.mark.parametrize("name", sorted(ACCUM_CASES))
 def test_accum_write_out_bit_equal_on_card(dev, name, overflowing):
     """trace_paths_compact adds each ray's radiance at its ray id in the
-    kernel's write-out: bit-equal to the same segments' radiance deltas
-    scattered by index_add_, under capacities that leave most rows padding
-    (then also to the uncompacted trace) and under one that overflows.
-    Every launch of the batch adds into the total; trace_paths' launch
-    does not."""
+    kernel's write-out, one launch a segment: under capacities that leave
+    most rows padding, bit-equal to the uncompacted trace (one launch);
+    under one that overflows, the flag is raised, the rays past the
+    capacity add nothing and every other ray what the uncompacted trace
+    gives it."""
     aspect, roomy, tight = ACCUM_CASES[name]
     caps = tight if overflowing else roomy
     tables = mk.pack_scene(build_scene(name, device=dev))
@@ -203,43 +197,40 @@ def test_accum_write_out_bit_equal_on_card(dev, name, overflowing):
     mk.reset_launch_counts()
     got, overflow = mk.trace_paths_compact(tables, state, 4096, SEED, bg, 8,
                                            capacities=caps, kernel="cuda")
-    counts = mk.launch_counts()
-    assert counts["accum_launches"] == counts["launches"] == len(mk.schedule(4096, 8, caps))
-    want, want_ovf = _scatter_compact(tables, state, 4096, bg, 8, caps)
-    assert overflow.item() == want_ovf.item() == overflowing
-    assert torch.equal(got, want)
+    assert mk.launch_counts()["launches"] == len(mk.schedule(4096, 8, caps))
+    assert overflow.item() == overflowing
     mk.reset_launch_counts()
     full = mk.trace_paths(tables, *rays, SEED, bg, 8, kernel="cuda")
-    assert mk.launch_counts()["launches"] == 1 and mk.launch_counts()["accum_launches"] == 0
-    if not overflowing:
-        assert torch.equal(got, full)
+    assert mk.launch_counts()["launches"] == 1
+    want = full.clone()
+    if overflowing:
+        want[_dropped(tables, state, 4096, bg, caps)] = 0.0
+        assert not torch.equal(want, full)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name", sorted(ACCUM_CASES))
 def test_accum_segment_adds_onto_the_total_on_card(dev, name):
     """One launch over a compacted buffer whose padding rows all repeat one
-    ray id, onto a nonzero total: what index_add_ of the launch's radiance
-    delta over every row adds, and the same carried state."""
+    ray id, onto a nonzero total: the total and live rows of the same
+    launch over its live rows alone, and the padding rows untouched."""
     aspect = ACCUM_CASES[name][0]
     tables = mk.pack_scene(build_scene(name, device=dev))
     bg = SCENE_DEFAULTS[name]["background"]
     state = mk.init_state(*_rays(name, aspect, 8192, dev))
-    _, state = mk.trace_segment(tables, state, SEED, bg, 0, 2)
-    count = (state[:, mk.S_AL] > 0.5).sum()
-    cap = mk._tiles(int(2.5 * count.item()))
-    comp, _ = mk.compact(state, count, cap)
+    _, state = _launch(tables, state, 0, 2, bg)
+    count = int((state[:, mk.S_AL] > 0.5).sum().item())
+    cap = mk._tiles(int(2.5 * count))
+    comp, _ = mk.compact(state, torch.tensor(count, device=dev), cap)
     pad = comp[count:, mk.S_RID].view(torch.int32)
     assert pad.numel() > 0 and (pad == pad[0]).all()
     base = torch.rand((3, state.shape[0]), generator=torch.Generator().manual_seed(1)).to(dev)
-    rad, want_state = mk.trace_segment(tables, comp, SEED, bg, 2, 3)
     want = base.clone()
-    rid = comp[:, mk.S_RID].view(torch.int32).long()
-    for c in range(3):
-        want[c].index_add_(0, rid, rad[c])
+    want_live = mk.trace_segment(tables, comp[:count].contiguous(), SEED, bg, 2, 3, accum=want)
     got = base.clone()
-    none, got_state = mk.trace_segment(tables, comp, SEED, bg, 2, 3, accum=got)
-    assert none is None
-    assert torch.equal(got_state, want_state)
+    got_state = mk.trace_segment(tables, comp, SEED, bg, 2, 3, accum=got)
+    assert torch.equal(got_state[:count], want_live)
+    assert torch.equal(got_state[count:], comp[count:])
     assert torch.equal(got, want) and not torch.equal(got, base)
 
 
@@ -265,14 +256,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     tables = mk.pack_scene(build_scene("cornell_box", device=dev))
     state = mk.init_state(*_rays("cornell_box", 1.0, 1024, dev))
     bg = (0.0, 0.0, 0.0)
+    total = torch.zeros((3, 1024), device=dev)
     before = mk.launch_counts()["launches"]
     with pytest.raises(ValueError, match="contiguous"):
-        mk.trace_segment(tables, state.t().contiguous().t(), SEED, bg, 0, 1)
+        mk.trace_segment(tables, state.t().contiguous().t(), SEED, bg, 0, 1, accum=total)
     with pytest.raises(TypeError, match="float32"):
-        mk.trace_segment(tables, state.double(), SEED, bg, 0, 1)
+        mk.trace_segment(tables, state.double(), SEED, bg, 0, 1, accum=total)
     cpu_tables = mk.pack_scene(build_scene("cornell_box", device="cpu"))
     with pytest.raises(ValueError, match="is on cpu"):
-        mk.trace_segment(cpu_tables, state, SEED, bg, 0, 1)
+        mk.trace_segment(cpu_tables, state, SEED, bg, 0, 1, accum=total)
     with pytest.raises(ValueError, match="needs tensors on a CUDA device"):
         mk.trace_paths(cpu_tables, *_rays("cornell_box", 1.0, 64, "cpu"), SEED, bg, 2,
                        kernel="cuda")
@@ -294,7 +286,7 @@ def _alive(fn, tables, state, bg, depth):
     alive = []
     for b in range(depth):
         alive.append(state[:, mk.S_AL] > 0.5)
-        _, state = fn(tables, state, SEED, bg, b, 1)
+        _, state = _launch(tables, state, b, 1, bg, fn=fn)
     return torch.stack(alive)
 
 
@@ -309,10 +301,10 @@ def test_kernel_winners_vs_plain_on_card(dev, name):
     bg = SCENE_DEFAULTS[name]["background"]
     state = mk.init_state(*rays)
     before = mk.launch_counts()["winners_launches"]
-    rad_w, st_w, win = mk.trace_segment(tables, state, SEED, bg, 0, 8, want_winners=True)
+    rad_w, st_w, win = _launch(tables, state, 0, 8, bg, want_winners=True)
     assert mk.launch_counts()["winners_launches"] == before + 1
-    rad, st = mk.trace_segment(tables, state, SEED, bg, 0, 8)
-    _, _, want = mk.trace_segment_plain(tables, state, SEED, bg, 0, 8, want_winners=True)
+    rad, st = _launch(tables, state, 0, 8, bg)
+    _, _, want = _launch(tables, state, 0, 8, bg, fn=mk.trace_segment_plain, want_winners=True)
     torch.cuda.synchronize()
     assert torch.equal(rad_w, rad) and torch.equal(st_w, st)
     assert win.shape == (8, state.shape[0]) and win.dtype == torch.int32
@@ -323,6 +315,19 @@ def test_kernel_winners_vs_plain_on_card(dev, name):
     live = alive_k & alive_p
     differ = (win[live] != want[live]).float().mean().item()
     assert differ <= 0.005, differ
+
+
+@pytest.mark.parametrize("name", ["final_scene", "cornell_box"])
+def test_trace_paths_winners_keep_the_radiance_on_card(dev, name):
+    """trace_paths' radiance is the same bits with return_winners as
+    without: the winners variant adds at the ray ids as the radiance-only
+    launch does."""
+    tables = mk.pack_scene(build_scene(name, device=dev))
+    rays = _rays(name, 16 / 9 if name == "final_scene" else 1.0, 8192, dev)
+    bg = SCENE_DEFAULTS[name]["background"]
+    rad = mk.trace_paths(tables, *rays, SEED, bg, 8, kernel="cuda")
+    rad_w, win = mk.trace_paths(tables, *rays, SEED, bg, 8, kernel="cuda", return_winners=True)
+    assert torch.equal(rad_w, rad) and win.shape == (8, 8192)
 
 
 def test_train_step_on_card(dev):
@@ -367,13 +372,13 @@ def test_golden_train_step_on_card(dev):
         assert (p0[k] != p1[k]).any(), k
 
 
-def _every_group(tables, state, bg, b0, n_bounces):
-    """(radiance, state, winners) of a launch at each G, asserted bit-equal
-    across G; returns the G = 1 outputs."""
+def _every_group(tables, state, bg, b0, n_bounces, cols=None):
+    """(radiance total, state, winners) of a launch at each G onto a zero
+    total [3, cols], asserted bit-equal across G; returns the G = 1
+    outputs."""
     ref = None
     for g in mk.GROUPS:
-        out = mk.trace_segment(tables, state, SEED, bg, b0, n_bounces, want_winners=True,
-                               _group=g)
+        out = _launch(tables, state, b0, n_bounces, bg, cols, want_winners=True, _group=g)
         assert mk.trace_segment.last_shape[0] == g
         if ref is None:
             ref = out
@@ -395,18 +400,19 @@ def test_every_lane_group_bit_equal_on_card(dev, name):
     tables = mk.pack_scene(build_scene(name, device=dev))
     bg = SCENE_DEFAULTS[name]["background"]
     state = mk.init_state(*_rays(name, aspect, 65536, dev))
-    _, st20 = mk.trace_segment(tables, state, SEED, bg, 0, 20)
+    cols = state.shape[0]   # the compacted buffer keeps these ray ids
+    _, st20 = _launch(tables, state, 0, 20, bg)
     small, overflow = mk.compact(st20, (st20[:, mk.S_AL] > 0.5).sum(), 8192)
     assert not overflow.item()
     for st, b0, n_b in ((state, 0, 8), (small, 20, 30)):
-        ref = _every_group(tables, st, bg, b0, n_b)
-        auto = mk.trace_segment(tables, st, SEED, bg, b0, n_b, want_winners=True)
-        rad, out = mk.trace_segment(tables, st, SEED, bg, b0, n_b)
+        ref = _every_group(tables, st, bg, b0, n_b, cols)
+        auto = _launch(tables, st, b0, n_b, bg, cols, want_winners=True)
+        rad, out = _launch(tables, st, b0, n_b, bg, cols)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(ref, auto))
         assert torch.equal(rad, ref[0]) and torch.equal(out, ref[1])
     # G = 1 for the camera rays' full buffer, more lanes a ray for the small one
-    mk.trace_segment(tables, small, SEED, bg, 20, 30)
+    _launch(tables, small, 20, 30, bg, cols)
     assert mk.trace_segment.last_shape[0] > 1
 
 
@@ -420,7 +426,7 @@ def test_ties_take_the_lower_index_on_card(dev):
     bg = (0.7, 0.8, 1.0)
     state = mk.init_state(*_rays("two_perlin_spheres", 1.5, 8192, dev))
     rad, _, win = _every_group(tables, state, bg, 0, 6)
-    _, _, want = mk.trace_segment_plain(tables, state, SEED, bg, 0, 6, want_winners=True)
+    _, _, want = _launch(tables, state, 0, 6, bg, fn=mk.trace_segment_plain, want_winners=True)
     torch.cuda.synchronize()
     for lost, won in zip(TIE_LOSERS(tables.s_pad), TIE_WINNERS(tables.s_pad)):
         assert not (win == lost).any() and not (want == lost).any()
@@ -440,12 +446,12 @@ def test_back_to_back_launches_reuse_the_counter_on_card(dev):
     tables = mk.pack_scene(build_scene("final_scene", device=dev))
     bg = SCENE_DEFAULTS["final_scene"]["background"]
     state = mk.init_state(*_rays("final_scene", 16 / 9, 32768, dev))
-    first = mk.trace_segment(tables, state, SEED, bg, 0, 5, want_winners=True)
-    second = mk.trace_segment(tables, state, SEED, bg, 0, 5, want_winners=True)
+    first = _launch(tables, state, 0, 5, bg, want_winners=True)
+    second = _launch(tables, state, 0, 5, bg, want_winners=True)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        third = mk.trace_segment(tables, state, SEED, bg, 0, 5, want_winners=True)
+        third = _launch(tables, state, 0, 5, bg, want_winners=True)
     torch.cuda.synchronize()
     for a, b, c in zip(first, second, third):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -462,13 +468,13 @@ def test_small_buffers_on_card(dev, rows):
     tables = mk.pack_scene(build_scene("final_scene", device=dev))
     bg = SCENE_DEFAULTS["final_scene"]["background"]
     full = mk.init_state(*_rays("final_scene", 16 / 9, 1024, dev))
-    rad_full, st_full = mk.trace_segment(tables, full, SEED, bg, 0, 8)
+    rad_full, st_full = _launch(tables, full, 0, 8, bg)
     state = full[:rows].contiguous()
     rad, st, _ = _every_group(tables, state, bg, 0, 8)
-    mk.trace_segment(tables, state, SEED, bg, 0, 8)
+    _launch(tables, state, 0, 8, bg)
     g, blocks = mk.trace_segment.last_shape
     assert g == 32 and blocks == -(-rows * 32 // mk.BLOCK)
-    want, _ = mk.trace_segment_plain(tables, full, SEED, bg, 0, 8)
+    want, _ = _launch(tables, full, 0, 8, bg, fn=mk.trace_segment_plain)
     torch.cuda.synchronize()
     assert torch.equal(rad, rad_full[:, :rows]) and torch.equal(st, st_full[:rows])
     diverged = ((rad_full - want).abs() > 1e-3).float().mean().item()

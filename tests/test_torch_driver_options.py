@@ -207,9 +207,9 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
         jscene, jcam, "two_spheres", W, H, SPP, DEPTH, BG, SEED, p, rays_per_chunk=W * H,
         use_pallas=False)) - 1000.0
     scene, cam = _two_spheres()
-    last = render_mod.render_batch_eager(scene, cam, BG, SEED, SPP - 1,
-                                         torch.zeros(H, W, 3), width=W, height=H,
-                                         n_samples=1, max_depth=DEPTH).numpy()
+    last = render_mod.to_framebuffer(render_mod.render_range(
+        scene, cam, W, H, (0, W * H), (SPP - 1, SPP), DEPTH, BG, SEED, kernel="eager"),
+        W, H).numpy()
     assert (out > -1e-3).all() and out.max() > 0.1
     np.testing.assert_allclose(out.mean((0, 1)), last.mean((0, 1)), rtol=0.02)
     assert checkpoint.load(p).samples_done == SPP

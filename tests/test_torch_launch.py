@@ -161,12 +161,13 @@ def test_ties_take_the_lowest_index_like_the_pallas_kernel():
 
     jtab, jstate = jmk._pack_scene(jscene), jmk._init_state(*jrays)
     state = mk.init_state(*rays)
+    total = torch.zeros((3, state.shape[0]))   # not read
     live = np.ones((depth, n), dtype=bool)
     for b in range(depth):
         live[b] = (np.asarray(jstate["al"])[:n] > 0.5) & (state[:n, mk.S_AL] > 0.5).numpy()
         _, jstate = jmk._trace_segment(jtab, jstate, jnp.uint32(SEED), jbg, jnp.int32(b), 1,
                                        interpret=True, **jmk._static_meta(jscene))
-        _, state = mk.trace_segment_plain(tables, state, SEED, bg, b, 1)
+        state = mk.trace_segment_plain(tables, state, SEED, bg, b, 1, accum=total)
     for lost, won in zip(TIE_LOSERS(tables.s_pad), TIE_WINNERS(tables.s_pad)):
         assert not (got == lost).any()
         assert not (want[live] == lost).any()

@@ -135,17 +135,19 @@ def test_ray_state_refuses_a_kernel_it_cannot_run(kernel):
 @pytest.mark.parametrize("spp", [1, 4])
 def test_no_raygen_launch_on_the_cpu(spp):
     """The CPU takes the PyTorch ops: the kernel's counter stays 0, and
-    the render is the one the ops give batch by batch."""
+    the render is the one the ops give batch by batch (render_range over
+    one sample at a time)."""
     cfg = RenderConfig(scene="final_scene", width=16, height=9, samples_per_pixel=spp,
                        max_depth=6, rays_per_chunk=16 * 9)
     mk.reset_launch_counts()
     _, accum = render_mod.render_image(cfg, device="cpu", capacities=mk.CAPS_OPEN)
     assert mk.launch_counts()["raygen_launches"] == 0
-    tables = mk.pack_scene(render_mod.build_scene("final_scene", device="cpu"))
+    scene = render_mod.build_scene("final_scene", device="cpu")
     cam = render_mod.camera_for_scene("final_scene", 16 / 9, "cpu")
-    want = torch.zeros(9, 16, 3)
+    sums = torch.zeros(16 * 9, 3)
     for s in range(spp):
-        want, _ = render_mod.render_batch_compact(
-            tables, cam, SCENE_DEFAULTS["final_scene"]["background"], 42, s, want, width=16, height=9, n_samples=1,
-            max_depth=6, capacities=mk.CAPS_OPEN)
-    assert torch.equal(accum, want)
+        sums += render_mod.render_range(scene, cam, 16, 9, (0, 16 * 9), (s, s + 1), 6,
+                                        SCENE_DEFAULTS["final_scene"]["background"], 42,
+                                        capacities=mk.CAPS_OPEN)
+    assert mk.launch_counts()["raygen_launches"] == 0
+    assert torch.equal(accum, render_mod.to_framebuffer(sums, 16, 9))

@@ -19,8 +19,7 @@ from rtweekend_tpu.render import render_image as jax_render_image
 from rtweekend_tpu_torch import cli
 from rtweekend_tpu_torch.config import RenderConfig
 from rtweekend_tpu_torch.models.builders import build_scene
-from rtweekend_tpu_torch.render import camera_for_scene, render, render_batch, render_image
-from rtweekend_tpu_torch.ops.cuda.megakernel import pack_scene
+from rtweekend_tpu_torch.render import camera_for_scene, render, render_image
 
 from test_torch_megakernel import one_torch_thread  # noqa: F401  (autouse)
 
@@ -41,13 +40,13 @@ def test_render_image_matches_jax(name):
 
 
 def test_render_recovers_compaction_overflow():
-    """An overflowing schedule is re-traced uncompacted, never dropped."""
+    """An overflowing schedule is re-traced uncompacted, never dropped: the
+    frame of the render with no compaction (one segment a batch)."""
     scene = build_scene("cornell_box", device="cpu")
     cam = camera_for_scene("cornell_box", 1.0, device="cpu")
     bg = (0.0, 0.0, 0.0)
     fb = render(scene, cam, 16, 16, 4, 6, bg, 42, capacities=((2, 0.1),))
-    want = render_batch(pack_scene(scene), cam, bg, 42, 0, torch.zeros(16, 16, 3),
-                        width=16, height=16, n_samples=4, max_depth=6)
+    want = render(scene, cam, 16, 16, 4, 6, bg, 42, capacities=())
     assert torch.isfinite(fb).all()
     torch.testing.assert_close(fb, want, rtol=1e-5, atol=1e-6)
 

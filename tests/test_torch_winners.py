@@ -55,10 +55,11 @@ def _jax_alive(scene, rays, bg, depth):
 
 def _port_alive(tables, rays, bg, depth):
     state = mk.init_state(*rays)
+    total = torch.zeros((3, state.shape[0]))   # not read
     alive = []
     for b in range(depth):
         alive.append((state[:, mk.S_AL] > 0.5).numpy())
-        _, state = mk.trace_segment_plain(tables, state, SEED, bg, b, 1)
+        state = mk.trace_segment_plain(tables, state, SEED, bg, b, 1, accum=total)
     return np.stack(alive)[:, :N]
 
 
@@ -118,8 +119,9 @@ def test_trace_segment_winners_rows(name):
     state = mk.init_state(o, d, torch.full((256,), 0.5), ids, ids * 0)
     state[::3, mk.S_AL] = 0.0
     bg = SCENE_DEFAULTS[name]["background"]
-    rad, st = mk.trace_segment(tables, state, SEED, bg, 2, 3)
-    rad_w, st_w, win = mk.trace_segment(tables, state, SEED, bg, 2, 3, want_winners=True)
+    rad, rad_w = torch.zeros((3, state.shape[0])), torch.zeros((3, state.shape[0]))
+    st = mk.trace_segment(tables, state, SEED, bg, 2, 3, accum=rad)
+    st_w, win = mk.trace_segment(tables, state, SEED, bg, 2, 3, accum=rad_w, want_winners=True)
     assert torch.equal(rad, rad_w) and torch.equal(st, st_w)
     assert win.shape == (3, state.shape[0]) and win.dtype == torch.int32
     assert (win[:, ::3] == -1).all()
